@@ -1,0 +1,50 @@
+"""Carry the JAX package's trees into the port, through numpy.
+
+The caller converts JAX arrays to numpy (``np.asarray`` leaf by leaf);
+bf16 arrives as an ``ml_dtypes.bfloat16`` array and crosses as its raw
+16 bits. This module imports no JAX: it maps nested dicts of numpy
+arrays onto the port's tensors path for path.
+
+    params_from_numpy(model, tree)   -> registers the Model's parameters
+    lora_pool_from_numpy(tree)       -> stacked pool, leaves [ng, R, r, d]
+    cache_from_numpy(tree)           -> KV cache, leaves [ng, B, C, ...]
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import Model
+
+
+def tensor_from_numpy(a: np.ndarray, device: Any = "cpu") -> torch.Tensor:
+    """One numpy array (bf16 included) as a tensor of the same dtype."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def tree_from_numpy(tree: Any, device: Any = "cpu") -> Any:
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(np.asarray(tree), device)
+
+
+def params_from_numpy(model: Model, tree: Dict) -> Dict:
+    """Load the JAX param tree into ``model`` path for path (shapes are
+    checked against its config). Returns ``model.params``."""
+    return model.load_params(tree_from_numpy(tree, model.device))
+
+
+def lora_pool_from_numpy(tree: Dict, device: Any = "cpu") -> Dict:
+    """The stacked LoRA pool (or one adapter) as tensors."""
+    return tree_from_numpy(tree, device)
+
+
+def cache_from_numpy(tree: Dict, device: Any = "cpu") -> Dict:
+    """A KV cache tree (k, v and the int32 pos leaves) as tensors."""
+    return tree_from_numpy(tree, device)

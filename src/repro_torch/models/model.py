@@ -1,0 +1,228 @@
+"""Model API, dense decoder subset (``repro.models.model``).
+
+``Model`` is an ``nn.Module`` whose ``weights`` child mirrors the JAX
+param tree path for path (``weights.layers.slot0.attn.wq`` is
+``params['layers']['slot0']['attn']['wq']``, stacked ``[n_groups,
+...]``), so weights carry across unchanged. The forward functions keep the reference's signatures and take the
+params as a nested dict (``Model.params`` is that view of the module's
+own parameters); the serving engine calls ``prefill`` and
+``decode_step`` with a ``LoRAMode`` carrying per-request adapter slots.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.lora import LoRAMode
+from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.models import transformer
+from repro_torch.models.layers import (init_device, rmsnorm,
+                                      truncated_normal_init, unembed)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for config features outside the ported slice (dense global
+    attention, gated MLP, RMSNorm, RoPE, LoRA): nothing degrades
+    silently."""
+    a = cfg.attn
+    unported = {
+        "family != 'dense'": cfg.family != "dense",
+        "non-global layers": any(k != "global" for k in a.layer_pattern),
+        "qkv_bias": a.qkv_bias, "qk_norm": a.qk_norm,
+        "attn_logit_softcap": a.attn_logit_softcap is not None,
+        "kv_cache_quant": a.kv_cache_quant, "rope=False": not a.rope,
+        "final_logit_softcap": cfg.final_logit_softcap is not None,
+        "post_norm": cfg.post_norm,
+        "scale_embeddings": cfg.scale_embeddings,
+        "moe/ssm/encoder/shared_attn": (cfg.moe is not None
+                                        or cfg.ssm is not None
+                                        or cfg.encoder is not None
+                                        or bool(cfg.shared_attn_every)),
+    }
+    found = [k for k, v in unported.items() if v]
+    if found:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(found)} not yet ported to repro_torch "
+            "(later slices, see ROADMAP.md)")
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as an ``nn.Module``: dict nodes become
+    child modules and leaves frozen ``Parameter``s, so ``state_dict()``
+    keys are the tree's paths joined by '.'."""
+
+    def __init__(self, tree: Dict) -> None:
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self) -> Dict:
+        out: Dict[str, Any] = dict(self._parameters)
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+def _shapes(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda"):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.dtype = torch_dtype(cfg.dtype)
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------
+    # params
+    # ------------------------------------------------------------------
+
+    def _param_tree(self, generator: Optional[torch.Generator]) -> Dict:
+        """The reference's param tree drawn from ``generator``; shapes
+        only (meta device) when it is None."""
+        cfg, dt = self.cfg, self.dtype
+        params: Dict[str, Any] = {
+            "embed": truncated_normal_init(
+                generator, (cfg.vocab_size, cfg.d_model), 1.0, dt),
+            "final_norm": {"scale": torch.zeros(
+                (cfg.d_model,), dtype=dt, device=init_device(generator))},
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = truncated_normal_init(
+                generator, (cfg.d_model, cfg.vocab_size), 1.0, dt)
+        params.update(transformer.init_stack(generator, cfg, dt))
+        return params
+
+    def init(self, generator: torch.Generator) -> Dict:
+        """Draw the reference's init distributions from ``generator``
+        (on this model's device), register them as parameters and return
+        the params tree."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        self.weights = ParamTree(self._param_tree(generator))
+        return self.params
+
+    def load_params(self, tree: Dict) -> Dict:
+        """Register ``tree`` (the JAX param tree as tensors) as this
+        model's parameters, moved to its device; raises unless every path
+        and shape matches the config."""
+        want = _shapes(self._param_tree(None))
+        got = _shapes(tree)
+        if want != got:
+            raise ValueError(f"{self.cfg.name}: param tree mismatch:\n"
+                             f"  expected {want}\n  got      {got}")
+
+        def move(node: Any) -> Any:
+            if isinstance(node, dict):
+                return {k: move(v) for k, v in node.items()}
+            return node.to(self.device)
+
+        self.weights = ParamTree(move(tree))
+        return self.params
+
+    @property
+    def params(self) -> Dict:
+        """Nested dict view (the JAX param tree) of the parameters."""
+        return self.weights.tree()
+
+    def init_lora(self, generator: torch.Generator,
+                  n_slots: Optional[int] = None,
+                  dtype: torch.dtype = torch.float32) -> Dict:
+        return transformer.init_lora_stack(generator, self.cfg,
+                                           n_slots=n_slots, dtype=dtype)
+
+    # ------------------------------------------------------------------
+    # embedding / head
+    # ------------------------------------------------------------------
+
+    def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens.long()]
+
+    def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        return unembed(h, head, tied=cfg.tie_embeddings,
+                       softcap=cfg.final_logit_softcap)
+
+    # ------------------------------------------------------------------
+    # serving: cache, prefill, decode
+    # ------------------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int) -> Dict:
+        return transformer.init_cache(self.cfg, batch, max_len, self.dtype,
+                                      self.device)
+
+    def prefill(self, params: Dict, batch: Dict[str, torch.Tensor],
+                cache: Dict, lora: Optional[Dict] = None,
+                lora_mode: LoRAMode = LoRAMode(),
+                opts: Optional[Dict] = None,
+                lengths: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+        """Process the prompt, fill ``cache`` (in place). Returns
+        (last-token logits [B, V], cache).
+
+        ``lengths`` [B]: real prompt lengths of right-padded rows —
+        logits come from position length-1 **per row**, and cache
+        entries past each row's prompt are invalidated.
+        """
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = self.embed(params, tokens)
+        seq_mask = None
+        if lengths is not None:
+            seq_mask = (torch.arange(s, device=tokens.device)[None, :]
+                        < lengths[:, None])
+        positions = torch.arange(s, device=tokens.device)
+        h, _, cache = transformer.forward_stack(
+            params, x, self.cfg, positions, lora, lora_mode, opts,
+            cache=cache, seq_mask=seq_mask, lengths=lengths)
+        if lengths is not None:
+            last = h[torch.arange(b, device=h.device), lengths.long() - 1]
+            cache = _invalidate_past(cache, lengths)
+        else:
+            last = h[:, -1]
+        return self.logits(params, last), cache
+
+    def decode_step(self, params: Dict, tokens: torch.Tensor, cache: Dict,
+                    pos: torch.Tensor, lora: Optional[Dict] = None,
+                    lora_mode: LoRAMode = LoRAMode()
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """tokens: [B] (the last generated token per sequence); pos: [B]
+        per-slot positions. Returns (logits [B, V], cache); the cache is
+        updated in place."""
+        x = self.embed(params, tokens)
+        h, cache = transformer.decode_stack(params, x, cache, self.cfg, pos,
+                                            lora, lora_mode)
+        return self.logits(params, h), cache
+
+
+def _invalidate_past(cache: Dict, lengths: torch.Tensor) -> Dict:
+    """Set stored cache positions >= length (right-pad writes) to -1, in
+    place. Attention caches are dicts with a 'pos' leaf [..., B, C];
+    ``lengths`` [B] broadcasts per row."""
+    for node in cache.values():
+        if isinstance(node, dict) and "pos" in node and "k" in node:
+            pos = node["pos"]
+            shape = [1] * pos.dim()
+            shape[-2] = lengths.shape[0]
+            lb = lengths.to(pos.device, pos.dtype).reshape(shape)
+            pos.masked_fill_(pos >= lb, -1)
+        elif isinstance(node, dict):
+            _invalidate_past(node, lengths)
+    return cache
+
+
+def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
+    return Model(cfg, device)
