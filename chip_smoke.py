@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 1. The card: ``nvidia-smi`` name and power limit, torch/CUDA versions;
    TF32 off for matmuls and cuDNN.
 2. Build every CUDA kernel of the port with nvcc (``sm_90a``) from the
-   sources in this checkout.
+   sources in this checkout (``sgmv.cu``, ``paged_gather.cu``: one nvcc
+   per source, started together; each source's seconds printed).
 3. Kernels: ``sgmv_shrink``, ``sgmv_expand`` and the full ``ops.sgmv`` on
    the card against their plain PyTorch versions at the main path's
    shapes (Llama-3.1-8B LoRA: d ∈ {4096, 1024, 14336}, r = 32, R = 20
@@ -21,7 +22,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    yardstick, and the least time the card could take (its bound: the
    bytes and FLOPs of the T real rows and the adapters they use; the
    figure for the whole padded buffer the kernels walk is kept beside
-   it as ``bound_padded_ms``).
+   it as ``bound_padded_ms``). ``paged_gather_pages`` at the paged
+   decode step's shape (32 layers, 137 pages of 16 tokens × 8·128
+   features, 8 rows × 17 table entries mixing shuffled pages, repeats
+   and an idle all -1 row) in bf16 and f32, bit-equal to its plain
+   version, timed beside it, ``torch.index_select`` and its bound. The
+   library attention call (``scaled_dot_product_attention`` with GQA)
+   is timed at the shapes of the two TPU attention kernels not yet
+   ported, as their yardstick.
 4. Serve: ``EdgeLoRAEngine`` on the full Llama-3.1-8B config (bf16, 32
    layers, random weights from a seeded ``torch.Generator`` on the card,
    rescaled to fan-in scale),
@@ -32,6 +40,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    steps and in its decode steps alike (each counted apart). On one decode
    step's inputs, the ``sgmv`` and ``einsum`` backends must agree on the
    logits.
+5. Dense vs paged KV, same weights and adapters: one burst trace served
+   twice under the same deterministic timer (``FakeTime`` through the
+   engine's ``timer=`` hook), ``kv_backend='dense'`` then ``'paged'``
+   (``kv_gather_kernel`` left to resolve to the CUDA kernel). Every
+   request's token stream must be equal, and the page gather must have
+   launched exactly twice (k and v) per paged decode step call.
+6. Paged KV with the shared-prefix cache and chunked prefill on the real
+   timer: requests of 4 tenants open with their tenant's 32-token system
+   prompt (prompts 40–96 tokens), prefilled in chunks of 32. All must
+   complete with prefix hits, saved prefill tokens and at least one
+   request prefilled in more than one chunk.
+
+Each serve's kernel launch counts are zeroed just before it and read just
+after; every kernel its path runs must have launched.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Writes details to
@@ -55,6 +77,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 SLEEP_CYCLES = 4_000_000                    # ~2 ms of device time
 R_POOL, RANK, N_SLOTS = 20, 32, 8          # llama3_8b max_resident, rank
+MAX_CTX, KV_BLOCK = 256, 16                 # the serves' max_ctx, page size
+# paged arena at dense-equivalent capacity: ceil(257/16) = 17 pages per
+# sequence, 8 · 17 = 136 pages + the trash page, one leaf per layer
+PAGES_PER_SEQ = -(-(MAX_CTX + 1) // KV_BLOCK)
+N_PAGES = N_SLOTS * PAGES_PER_SEQ + 1
+N_LAYERS, N_HEADS, N_KV_HEADS, HEAD_DIM = 32, 32, 8, 128
 SHRINK_D = (4096, 14336)                    # q,k,v,up in; down in
 EXPAND_D = (4096, 1024, 14336)              # q,down out; k,v out; up out
 MODULES = {"q": (4096, 4096), "k": (4096, 1024), "v": (4096, 1024),
@@ -89,6 +117,20 @@ def check(cond: bool, msg: str) -> None:
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+class FakeTime:
+    """Deterministic step timer for the engine's ``timer=`` hook: every
+    ``perf_counter`` call advances a fixed tick, so two engines that run
+    the same steps see the same step durations."""
+
+    def __init__(self, tick: float = 5e-3) -> None:
+        self.t = 0.0
+        self.tick = tick
+
+    def perf_counter(self) -> float:
+        self.t += self.tick
+        return self.t
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +304,111 @@ def kernel_phase(torch, dev):
     return rows
 
 
+def gather_phase(torch, dev):
+    """``paged_gather_pages`` against its plain version at the paged
+    decode step's shape, bf16 and f32; timed beside the plain version,
+    ``torch.index_select`` and its bound."""
+    from repro_torch.kernels import paged_gather as pg
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    ng, bs, feat = N_LAYERS, KV_BLOCK, N_KV_HEADS * HEAD_DIM
+    b, mb = N_SLOTS, PAGES_PER_SEQ
+    # rows 0-5: distinct shuffled pages for lengths of 1..17 pages, -1
+    # past each row's length; row 6 repeats pages; row 7 is idle (all -1)
+    perm = torch.randperm(N_PAGES - 1, generator=gen, device=dev).int()
+    tables = torch.full((b, mb), -1, dtype=torch.int32, device=dev)
+    used = 0
+    for row, n in enumerate((17, 16, 9, 17, 4, 1)):
+        tables[row, :n] = perm[used:used + n]
+        used += n
+    tables[6, :6] = perm[:3].repeat(2)
+    rows = []
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        arena = torch.randn(ng, N_PAGES, bs, feat, generator=gen,
+                            device=dev).to(dtype)
+        got = pg.paged_gather_pages(arena, tables)
+        want = pg.paged_gather_pages_plain(arena, tables)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"paged_gather_pages {dname} differs from its plain version")
+        idx = (tables.long() % N_PAGES).flatten()
+        lib = torch.index_select(arena, 1, idx).reshape(got.shape)
+        check(torch.equal(lib, want), "index_select yardstick differs")
+        # bytes the function must move: every distinct page the tables
+        # name read once, the gathered run written once, the table read
+        page_bytes = bs * feat * arena.element_size()
+        distinct = int(torch.unique(idx).numel())
+        nbytes = (ng * distinct * page_bytes + got.numel()
+                  * got.element_size() + tables.numel() * 4)
+        bnd, by = bound_ms(nbytes, 0.0, dname)
+        rows.append(dict(
+            kernel="paged_gather_pages", dtype=dname, ng=ng,
+            n_pages=N_PAGES, bs=bs, F=feat, B=b, MB=mb,
+            distinct_pages=distinct, out_mb=got.numel()
+            * got.element_size() / 1e6, max_abs_err=0.0,
+            ms=cuda_ms(torch, lambda: pg.paged_gather_pages(arena, tables),
+                       flush),
+            plain_ms=cuda_ms(torch, lambda: pg.paged_gather_pages_plain(
+                arena, tables), flush),
+            library_ms=cuda_ms(torch, lambda: torch.index_select(
+                arena, 1, idx), flush),
+            bound_ms=bnd, bound_by=by,
+            # the read-and-write-everything figure (every table entry's
+            # page read, repeats and -1 included)
+            bound_all_entries_ms=2 * got.numel() * got.element_size()
+            / HBM_BYTES_PER_S * 1e3))
+        del arena, got, want, lib
+        log(f"paged_gather_pages {dname} ok: " + json.dumps(rows[-1]))
+    return rows
+
+
+def attention_yardsticks(torch, dev):
+    """Library attention (``scaled_dot_product_attention``, GQA) at the
+    shapes of the two TPU attention kernels still to be ported, with the
+    bound of the work their code does there: ``flash_decode`` over the
+    serve's decode step (8 rows, one query each, a 256-entry ring of 8
+    KV heads) and ``flash_prefill`` over a full prefill group (8 rows of
+    64 tokens, causal). bf16."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    bf = torch.bfloat16
+    h, kh, hd, b = N_HEADS, N_KV_HEADS, HEAD_DIM, N_SLOTS
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    out = []
+    # flash_decode: q [B,H,hd], k,v [B,C,KH,hd], kv_pos [B,C] int32
+    c = MAX_CTX
+    q, k, v = randn(b, h, 1, hd), randn(b, kh, c, hd), randn(b, kh, c, hd)
+    mask = torch.ones(b, 1, 1, c, dtype=torch.bool, device=dev)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * b * c
+    bnd, by = bound_ms(nbytes, 4.0 * b * h * c * hd, "bfloat16")
+    out.append(dict(
+        kernel="flash_decode", shape=f"q [{b},{h},{hd}] k,v [{b},{c},{kh},"
+        f"{hd}] bf16", bound_ms=bnd, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), flush)))
+    # flash_prefill: q [B,S,H,hd], k,v [B,S,KH,hd], causal
+    sq = 64
+    q, k, v = randn(b, h, sq, hd), randn(b, kh, sq, hd), randn(b, kh, sq, hd)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4.0 * b * h * hd * sq * (sq + 1) / 2   # causal half
+    bnd, by = bound_ms(nbytes, flops, "bfloat16")
+    out.append(dict(
+        kernel="flash_prefill", shape=f"q [{b},{sq},{h},{hd}] k,v [{b},{sq},"
+        f"{kh},{hd}] bf16 causal", bound_ms=bnd, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), flush)))
+    for r in out:
+        log("attention yardstick " + json.dumps(r))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve the full model through the sgmv kernels
 # ---------------------------------------------------------------------------
@@ -297,7 +444,7 @@ def serve_phase(torch, dev, profile: bool):
     # top_k=1: AAS takes the router's first choice, so the trace's cold
     # adapters are swapped into the pool during the serve
     ecfg = EngineConfig(n_slots=N_SLOTS, top_k=1, policy="edgelora",
-                        max_ctx=256, prompt_buckets=(32, 64),
+                        max_ctx=MAX_CTX, prompt_buckets=(32, 64),
                         lora_backend="auto", seed=0)
     t0 = time.perf_counter()
     engine = EdgeLoRAEngine(cfg, ecfg, device=dev,
@@ -424,12 +571,226 @@ def serve_phase(torch, dev, profile: bool):
 
     prof = (profile_decode(torch, raw_decode, engine, captured)
             if profile else None)
-    return dict(summary=dataclasses.asdict(summary), launches=launches,
-                path_launches=path_launches, launches_per_step=per_step,
-                init_s=init_s,
-                serve_s=serve_s, step_ms=step_ms, peak_gb=peak_gb,
-                backend_max_abs=d, backend_max_logit=scale_l,
-                top1_agree=int(agree.sum()), profile=prof)
+    result = dict(summary=dataclasses.asdict(summary), launches=launches,
+                  path_launches=path_launches, launches_per_step=per_step,
+                  init_s=init_s,
+                  serve_s=serve_s, step_ms=step_ms, peak_gb=peak_gb,
+                  backend_max_abs=d, backend_max_logit=scale_l,
+                  top1_agree=int(agree.sum()), profile=prof)
+    # what the later serves share: the config, the (rescaled) weights and
+    # the adapters; the engine itself and its pool are freed on return
+    shared = dict(cfg=cfg, params=engine.params,
+                  adapter_source=adapter_source)
+    return result, shared
+
+
+# ---------------------------------------------------------------------------
+# phases 5-6: the paged KV arena, the prefix cache, chunked prefill
+# ---------------------------------------------------------------------------
+
+
+def _counts():
+    from repro_torch.kernels import paged_gather, sgmv
+    return {**sgmv.launches, **paged_gather.launches}
+
+
+def _reset_counts() -> None:
+    from repro_torch.kernels import paged_gather, sgmv
+    sgmv.reset_launches()
+    paged_gather.reset_launches()
+
+
+def _timed_steps(torch, engine, names):
+    """Wrap engine step functions to record host ms per call (each call
+    ends in a device sync). Returns {name: [ms, ...]}."""
+    out = {}
+    for name in names:
+        fn = getattr(engine, name)
+        calls = out.setdefault(name, [])
+
+        def run(*args, _fn=fn, _calls=calls, **kw):
+            t = time.perf_counter()
+            res = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            _calls.append(1e3 * (time.perf_counter() - t))
+            return res
+        setattr(engine, name, run)
+    return out
+
+
+def _mean(xs):
+    return sum(xs) / len(xs) if xs else None
+
+
+def _release(torch) -> None:
+    """Return a freed engine's device memory (its pool and caches)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def paged_compare_phase(torch, dev, shared):
+    """One burst trace served under the same deterministic timer by a
+    dense and a paged engine: equal token streams, and two page-gather
+    launches per paged decode step call."""
+    from repro_torch.launch.serve import summary_row
+    from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
+    from repro_torch.serving.workload import WorkloadConfig, generate_trace
+
+    cfg = shared["cfg"]
+    # ~10 requests arriving within 50 ms of virtual time (10 steps of the
+    # 5 ms fake tick), so they overlap in the batch
+    wl = WorkloadConfig(n_adapters=cfg.lora.n_adapters, request_rate=200.0,
+                        duration=0.05, input_range=(8, 64),
+                        output_range=(8, 32), vocab_size=cfg.vocab_size,
+                        seed=1)
+    streams, out = {}, {}
+    for backend in ("dense", "paged"):
+        ecfg = EngineConfig(n_slots=N_SLOTS, top_k=1, policy="edgelora",
+                            max_ctx=MAX_CTX, prompt_buckets=(32, 64),
+                            lora_backend="auto", kv_backend=backend,
+                            kv_block_size=KV_BLOCK, seed=0)
+        engine = EdgeLoRAEngine(cfg, ecfg, params=shared["params"],
+                                device=dev,
+                                adapter_source=shared["adapter_source"],
+                                timer=FakeTime())
+        decode = "_decode_paged" if backend == "paged" else "_decode"
+        if backend == "paged":
+            check(engine.kv_gather_kernel,
+                  "kv_gather_kernel did not resolve to the kernel on CUDA")
+        steps = _timed_steps(torch, engine, ("_prefill", decode))
+        trace = generate_trace(wl)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        summary = engine.serve(trace)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = _counts()
+        check(summary.n_completed == summary.n_requests == len(trace) >= 6,
+              f"{backend}: completed {summary.n_completed}/"
+              f"{summary.n_requests}")
+        for name in ("sgmv_shrink", "sgmv_expand"):
+            check(launches[name] > 0, f"{backend}: {name} never launched")
+        n_dec = len(steps[decode])
+        gathers = launches["paged_gather_pages"]
+        if backend == "paged":
+            check(gathers == 2 * n_dec > 0,
+                  f"paged_gather_pages launched {gathers} times over "
+                  f"{n_dec} paged decode step calls (want 2 per call)")
+        else:
+            check(gathers == 0, "the dense serve launched the page gather")
+        streams[backend] = {r.request_id: list(r.tokens) for r in trace}
+        row = summary_row("edgelora", cfg.lora.n_adapters, summary)
+        out[backend] = dict(
+            requests=len(trace), serve_s=serve_s, launches=launches,
+            decode_step_calls=n_dec,
+            prefill_step_calls=len(steps["_prefill"]),
+            prefill_ms_mean=_mean(steps["_prefill"]),
+            decode_ms_mean=_mean(steps[decode]),
+            decode_ms_median=sorted(steps[decode])[n_dec // 2],
+            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9, row=row,
+            kv_stats=summary.kv_stats)
+        log(f"{backend} serve (deterministic timer): {row}")
+        log(f"  {len(trace)} requests in {serve_s:.1f}s wall; prefill "
+            f"{out[backend]['prefill_ms_mean']:.1f} ms mean over "
+            f"{len(steps['_prefill'])} calls, decode "
+            f"{out[backend]['decode_ms_mean']:.1f} ms mean / "
+            f"{out[backend]['decode_ms_median']:.1f} median over {n_dec} "
+            f"calls; peak {out[backend]['peak_gb']:.1f} GB; launches "
+            f"{launches}")
+        del engine
+        _release(torch)
+    same = sum(streams["dense"][k] == streams["paged"][k]
+               for k in streams["dense"])
+    log(f"dense vs paged token streams: {same}/{len(streams['dense'])} "
+        "requests equal")
+    check(streams["dense"] == streams["paged"],
+          "dense and paged token streams differ under one timer")
+    out["streams_equal"] = same
+    return out
+
+
+def prefix_chunk_phase(torch, dev, shared):
+    """Paged KV with the prefix cache and chunked prefill on the real
+    timer: 4 tenants' 32-token system prompts, 32-token chunks."""
+    from repro_torch.launch.serve import summary_row
+    from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
+    from repro_torch.serving.workload import WorkloadConfig, generate_trace
+
+    cfg = shared["cfg"]
+    sys_len, chunk, tenants = 32, 32, 4
+    wl = WorkloadConfig(n_adapters=tenants, request_rate=4.0, duration=3.0,
+                        input_range=(8, 64), output_range=(8, 32),
+                        system_prompt_len=sys_len,
+                        vocab_size=cfg.vocab_size, seed=2)
+    ecfg = EngineConfig(n_slots=N_SLOTS, top_k=1, policy="edgelora",
+                        max_ctx=MAX_CTX, prompt_buckets=(32, 64),
+                        lora_backend="auto", kv_backend="paged",
+                        kv_block_size=KV_BLOCK, prefix_cache=True,
+                        prefill_chunk=chunk, seed=0)
+    engine = EdgeLoRAEngine(cfg, ecfg, params=shared["params"], device=dev,
+                            adapter_source=shared["adapter_source"])
+    check(engine.kv_gather_kernel and engine.prefix_enabled
+          and engine.chunked, "paged + prefix + chunk engine not built")
+    steps = _timed_steps(torch, engine,
+                         ("_prefill", "_prefill_suffix", "_decode_paged"))
+    # requests still prefilling after one of their chunks: prefilled in
+    # more than one chunk
+    multi = set()
+    run_chunk = engine._prefill_chunk
+
+    def chunked(bucket, start, width, group, now):
+        dt = run_chunk(bucket, start, width, group, now)
+        multi.update(s.request.request_id for s in group
+                     if s.request.prompt_len > start + width)
+        return dt
+    engine._prefill_chunk = chunked
+
+    trace = generate_trace(wl)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    summary = engine.serve(trace)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(summary.n_completed == summary.n_requests == len(trace) >= 6,
+          f"prefix/chunk: completed {summary.n_completed}/"
+          f"{summary.n_requests}")
+    for r in trace:
+        check(len(r.tokens) == r.generated > 0
+              and all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"request {r.request_id}: bad output")
+    ps = summary.prefix_stats
+    check(ps["hit_requests"] > 0 and ps["saved_prefill_tokens"] > 0,
+          f"no prefix hits: {ps}")
+    check(bool(multi), "no request was prefilled in more than one chunk")
+    for name, n in launches.items():
+        check(n > 0, f"prefix/chunk serve: {name} never launched")
+    prefill_ms = steps["_prefill"] + steps["_prefill_suffix"]
+    row = summary_row("edgelora", cfg.lora.n_adapters, summary)
+    out = dict(requests=len(trace), serve_s=serve_s, launches=launches,
+               prompt_lens=[r.prompt_len for r in trace],
+               multi_chunk_requests=len(multi),
+               prefill_step_calls=len(prefill_ms),
+               prefill_ms_mean=_mean(prefill_ms),
+               decode_step_calls=len(steps["_decode_paged"]),
+               decode_ms_mean=_mean(steps["_decode_paged"]),
+               peak_gb=peak_gb, row=row, kv_stats=summary.kv_stats,
+               prefix_stats=ps, summary_prefill_steps=summary.prefill_steps)
+    log(f"prefix + chunk serve: {row}")
+    log(f"  {len(trace)} requests (prompts {min(out['prompt_lens'])}-"
+        f"{max(out['prompt_lens'])} tokens) in {serve_s:.1f}s wall; "
+        f"{len(multi)} prefilled in >1 chunk; prefill "
+        f"{out['prefill_ms_mean']:.1f} ms mean over {len(prefill_ms)} "
+        f"calls, decode {out['decode_ms_mean']:.1f} ms mean over "
+        f"{out['decode_step_calls']} calls; peak {peak_gb:.1f} GB; launches "
+        f"{launches}")
+    del engine
+    _release(torch)
+    return out
 
 
 def profile_decode(torch, decode, engine, captured, steps: int = 5):
@@ -520,19 +881,31 @@ def main(argv=None) -> int:
     # ---- 2. build ---------------------------------------------------------
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build()
-    log(f"kernel build {time.perf_counter() - t0:.1f}s "
-        f"({', '.join(_build.sources())})")
+    build_s = _build.build()
+    check(sorted(build_s) == ["paged_gather", "sgmv"],
+          f"unexpected kernel sources {sorted(build_s)}")
+    log(f"kernel build {time.perf_counter() - t0:.1f}s wall, one nvcc per "
+        "source: " + ", ".join(f"{n}.cu {t:.1f}s"
+                               for n, t in sorted(build_s.items())))
 
     # ---- 3. kernels -----------------------------------------------------
     t0 = time.perf_counter()
     rows = kernel_phase(torch, dev)
     for r in rows:
         log("  " + json.dumps(r))
+    gather_rows = gather_phase(torch, dev)
+    attention = attention_yardsticks(torch, dev)
     log(f"kernel phase {time.perf_counter() - t0:.1f}s")
 
     # ---- 4. serve -------------------------------------------------------
-    serve = serve_phase(torch, dev, args.profile)
+    serve, shared = serve_phase(torch, dev, args.profile)
+    _release(torch)
+
+    # ---- 5-6. paged KV, prefix cache, chunked prefill -------------------
+    t0 = time.perf_counter()
+    paged = paged_compare_phase(torch, dev, shared)
+    prefix = prefix_chunk_phase(torch, dev, shared)
+    log(f"paged phases {time.perf_counter() - t0:.1f}s")
 
     def pick(kernel):
         """The main path's decode shape: 8 bf16 rows, 4096 wide."""
@@ -558,11 +931,28 @@ def main(argv=None) -> int:
             bound_padded_ms=r["bound_padded_ms"],
             shape=f"decode T={r['T']} (T_pad={r['T_pad']}) d={r['d']} "
                   f"r={RANK} R={R_POOL} {r['dtype']} x, f32 pool"))
+    g = next(r for r in gather_rows if r["dtype"] == "bfloat16")
+    gather_launches = {"paged_compare": paged["paged"]["launches"][
+        "paged_gather_pages"], "prefix_chunk": prefix["launches"][
+        "paged_gather_pages"]}
+    kernels.append(dict(
+        name="paged_gather_pages", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_gather.cu",
+        replaces="src/repro/kernels/paged_gather.py:31",
+        launches=sum(gather_launches.values()),
+        launches_by_serve=gather_launches,
+        max_abs_err=max(r["max_abs_err"] for r in gather_rows),
+        ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+        bound_by=g["bound_by"], library_ms=g["library_ms"],
+        shape=f"ng={g['ng']} n_pages={g['n_pages']} bs={g['bs']} "
+              f"F={g['F']} B={g['B']} MB={g['MB']} bf16"))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        dict(card=smi, torch=torch.__version__, kernels=kernels,
-             kernel_rows=rows, serve=serve,
+        dict(card=smi, torch=torch.__version__, build_s=build_s,
+             kernels=kernels, kernel_rows=rows, gather_rows=gather_rows,
+             attention_yardsticks=attention, serve=serve,
+             paged_compare=paged, prefix_chunk=prefix,
              seconds=time.perf_counter() - t_start), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-into ``_build/lib<name>_<hash>.so``, where the hash covers the source and
+(one nvcc per source, started together) into
+``_build/lib<name>_<hash>.so``, where the hash covers the source and
 the compiler flags: a library is built at first use and rebuilt whenever
 its source changes. Nothing is built or loaded at import time (the CPU
 tests import every module; this machine-independent module only touches
@@ -21,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -56,23 +58,48 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-def build(names: Optional[Sequence[str]] = None) -> None:
+def build(names: Optional[Sequence[str]] = None) -> Dict[str, float]:
     """Compile every source in ``names`` (default: all) that is not built
-    yet. Raises with the compiler's output if a build fails."""
+    yet: one nvcc per source, all started together. Returns the seconds
+    each source took to build (0.0 where the library was already built).
+    Raises with the compiler's output if a build fails, after every
+    compiler it started has exited."""
+    seconds: Dict[str, float] = {}
+    running = {}
     for name in names or sources():
         out = library_path(name)
         if out.exists():
+            seconds[name] = 0.0
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {name}.cu (exit "
-                               f"{proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, out)
+        log = tmp.with_suffix(".log")
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
+                stdout=fh, stderr=subprocess.STDOUT)
+        running[name] = (proc, tmp, log, out, time.perf_counter())
+    failures = []
+    while running:
+        for name, (proc, tmp, log, out, t0) in list(running.items()):
+            if proc.poll() is None:
+                continue
+            seconds[name] = time.perf_counter() - t0
+            del running[name]
+            text = log.read_text()
+            log.unlink(missing_ok=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failures.append(f"nvcc failed for {name}.cu (exit "
+                                f"{proc.returncode}):\n{text}")
+            else:
+                os.replace(tmp, out)
+        if running:
+            time.sleep(0.05)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
 
 
 def load(name: str) -> ctypes.CDLL:

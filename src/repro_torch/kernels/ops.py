@@ -7,6 +7,9 @@ and scatter the results back to the original batch order. Every shape is
 a function of (T, R, blk_t) only, as in the reference: the padded token
 count is the static bound ``ceil(T/blk_t)·blk_t + R·blk_t``, so the plan
 never waits on the device.
+
+``paged_gather`` is the paged KV arena's page fetch: any-rank arena
+leaves through the ``paged_gather_pages`` kernel.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.paged_gather import paged_gather_pages
 from repro_torch.kernels.sgmv import DEFAULT_BLK_T, sgmv_expand, sgmv_shrink
 
 
@@ -93,3 +97,27 @@ def sgmv(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
     out = torch.empty((t, b_stack.shape[1]), dtype=y.dtype, device=y.device)
     out[plan.perm] = y[pos]                         # Fig. 6 scatter
     return (scale * out).to(x.dtype)
+
+
+def paged_gather(arena: torch.Tensor, tables: torch.Tensor, *,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """Gather block-table-addressed KV pages into contiguous sequences.
+
+    arena: [ng, n_pages, block_size, ...] (trailing dims are flattened
+    into one feature axis for the kernel and restored after); tables:
+    [B, MB] int32 physical page ids, -1 beyond each sequence's length.
+    -1 routes to the *last* page (``tables % n_pages``, a floor modulo):
+    the serving arena reserves that slot as the trash page. Returns
+    [ng, B, MB·block_size, ...]. ``use_kernel=False`` is the indexing
+    route ``arena[:, tables % n_pages]``; both are exact gathers of the
+    same pages.
+    """
+    ng, n_pages, bs = arena.shape[:3]
+    rest = arena.shape[3:]
+    b, mb = tables.shape
+    if not use_kernel:
+        pages = arena[:, tables.long() % n_pages]
+        return pages.reshape(ng, b, mb * bs, *rest)
+    flat = arena.reshape(ng, n_pages, bs, -1)
+    out = paged_gather_pages(flat, tables)
+    return out.reshape(ng, b, mb * bs, *rest)

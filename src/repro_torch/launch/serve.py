@@ -3,13 +3,18 @@ synthetic workload (``repro.launch.serve`` with ``--device``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --n-adapters 8 --rate 2 --duration 4 --max-ctx 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --prefix-cache --system-prompt-len 16 --prefill-chunk 16 \\
+        --n-adapters 4 --rate 3 --duration 2 --max-ctx 64
     PYTHONPATH=src python -m repro_torch.launch.serve --full   # on a GPU
 
 Runs on ``cuda`` unless ``--device cpu`` is given (no CUDA: it raises).
 ``--reduced`` (the default) is the tiny same-family variant; ``--full``
-the published Llama-3.1-8B widths. The flags are the reference's; those
-of features outside this slice (the llamacpp and dlora policies, paged
-KV, the prefix cache, chunked prefill, tracing) raise
+the published Llama-3.1-8B widths. The flags are the reference's:
+``--kv-backend paged``, ``--prefix-cache`` (which implies the paged
+backend) and ``--prefill-chunk`` serve as there, and the summary row
+carries their ``kv=`` and ``prefix=`` digests. Those of features outside
+the ported slices (the llamacpp and dlora policies, ``--trace``) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -80,8 +85,9 @@ def main(argv=None) -> int:
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
     if args.trace:
-        raise NotImplementedError("--trace is not yet ported to repro_torch "
-                                  "(slice: remaining engine features)")
+        raise NotImplementedError(
+            "--trace is not yet ported to repro_torch (slice: remaining "
+            "engine policies and tracing)")
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -6,7 +6,10 @@ param tree path for path (``weights.layers.slot0.attn.wq`` is
 ...]``), so weights carry across unchanged. The forward functions keep the reference's signatures and take the
 params as a nested dict (``Model.params`` is that view of the module's
 own parameters); the serving engine calls ``prefill`` and
-``decode_step`` with a ``LoRAMode`` carrying per-request adapter slots.
+``decode_step`` (and, with the paged KV arena, the prefix cache or
+chunked prefill, ``prefill_suffix``, ``prefill_suffix_dense`` and
+``decode_step_paged``) with a ``LoRAMode`` carrying per-request adapter
+slots.
 """
 from __future__ import annotations
 
@@ -195,6 +198,84 @@ class Model(nn.Module):
             last = h[:, -1]
         return self.logits(params, last), cache
 
+    def prefill_suffix(self, params: Dict, tokens: torch.Tensor,
+                       cache: Dict, arena_cache: Dict, tables: torch.Tensor,
+                       lengths: torch.Tensor, prefix_len: int,
+                       lora: Optional[Dict] = None,
+                       lora_mode: LoRAMode = LoRAMode(),
+                       opts: Optional[Dict] = None, *,
+                       meta: Any) -> Tuple[torch.Tensor, Dict]:
+        """Prefill only the suffix of prompts whose first ``prefix_len``
+        tokens are already in the page arena (a shared-prefix hit, or the
+        earlier chunks of a chunked prefill).
+
+        tokens: [B, S] suffix tokens (the padded prompt minus its first
+        ``prefix_len`` columns); tables: [B, max_blocks] block tables
+        already holding the prefix pages; lengths: [B] real *total*
+        prompt lengths; ``prefix_len`` a Python int. Per layer, attention
+        runs over the gathered prefix KV followed by the fresh suffix KV
+        — the keys, positions and mask a cold prefill sees. The suffix KV
+        lands in ``cache`` (a mini ring, in place; the engine scatters it
+        with ``kvpool.scatter_suffix``). Returns (last-token logits
+        [B, V], cache).
+        """
+        from repro_torch.serving import kvpool  # deferred: engine→models cycle
+
+        b, s = tokens.shape
+        x = self.embed(params, tokens)
+        positions = prefix_len + torch.arange(s, device=tokens.device)
+        prefix_kv = kvpool.gather_prefix(arena_cache, tables, prefix_len,
+                                         meta)
+        h, _, cache = transformer.forward_stack(
+            params, x, self.cfg, positions, lora, lora_mode, opts,
+            cache=cache, prefix_kv=prefix_kv,
+            prefix_positions=torch.arange(prefix_len, dtype=torch.int32,
+                                          device=tokens.device))
+        last = h[torch.arange(b, device=h.device),
+                 lengths.long() - prefix_len - 1]
+        return self.logits(params, last), cache
+
+    def prefill_suffix_dense(self, params: Dict, tokens: torch.Tensor,
+                             cache: Dict, global_cache: Dict,
+                             slot_idx: torch.Tensor, lengths: torch.Tensor,
+                             prefix_len: int,
+                             lora: Optional[Dict] = None,
+                             lora_mode: LoRAMode = LoRAMode(),
+                             opts: Optional[Dict] = None,
+                             ) -> Tuple[torch.Tensor, Dict]:
+        """Dense-backend sibling of ``prefill_suffix`` (chunked prefill):
+        prefill positions [prefix_len, prefix_len + S) of prompts whose
+        first ``prefix_len`` positions earlier chunks already wrote into
+        the engine's per-slot rings.
+
+        global_cache: the engine's dense cache ([ng, n_slots, clen, ...]
+        leaves); slot_idx: [B] the rows' slots; lengths: [B] prompt
+        lengths *clamped* to the chunk end (rows finishing in this chunk
+        read their real first-token logits, continuing rows a position
+        the engine ignores). Chunking is gated to full-length rings, so
+        ring index == position and the prefix needs no validity mask.
+        Returns (last-token logits [B, V], mini cache).
+        """
+        b, s = tokens.shape
+        x = self.embed(params, tokens)
+        positions = prefix_len + torch.arange(s, device=tokens.device)
+        rows = slot_idx.long()
+
+        def walk(node: Dict) -> Dict:
+            if isinstance(node, dict) and "k" in node and "pos" in node:
+                return {key: leaf[:, rows, :prefix_len]
+                        for key, leaf in node.items() if key != "pos"}
+            return {k: walk(v) for k, v in node.items()}
+
+        h, _, cache = transformer.forward_stack(
+            params, x, self.cfg, positions, lora, lora_mode, opts,
+            cache=cache, prefix_kv=walk(global_cache),
+            prefix_positions=torch.arange(prefix_len, dtype=torch.int32,
+                                          device=tokens.device))
+        last = h[torch.arange(b, device=h.device),
+                 lengths.long() - prefix_len - 1]
+        return self.logits(params, last), cache
+
     def decode_step(self, params: Dict, tokens: torch.Tensor, cache: Dict,
                     pos: torch.Tensor, lora: Optional[Dict] = None,
                     lora_mode: LoRAMode = LoRAMode()
@@ -206,6 +287,37 @@ class Model(nn.Module):
         h, cache = transformer.decode_stack(params, x, cache, self.cfg, pos,
                                             lora, lora_mode)
         return self.logits(params, h), cache
+
+    def decode_step_paged(self, params: Dict, tokens: torch.Tensor,
+                          cache: Dict, tables: torch.Tensor,
+                          lengths: torch.Tensor, prompt_lens: torch.Tensor,
+                          pad_lens: torch.Tensor, pos: torch.Tensor,
+                          lora: Optional[Dict] = None,
+                          lora_mode: LoRAMode = LoRAMode(), *,
+                          meta: Any, page_gather: Any = None
+                          ) -> Tuple[torch.Tensor, Dict]:
+        """Decode step attending through per-sequence KV block tables.
+
+        ``cache`` is the paged cache (attention nodes are page arenas,
+        see ``serving/kvpool.py``). tables: [B, max_blocks] int32
+        physical pages per row (-1 padded, all -1 for inactive rows);
+        lengths: [B] tokens already written; prompt_lens/pad_lens: [B]
+        real prompt length and padded prefill bucket; pos: [B] this
+        step's write position. The step builds the dense ring view the
+        block tables describe, runs the ordinary ``decode_step`` on it
+        (so token streams equal ``kv_backend='dense'``), and writes the
+        freshly written ring entries back into their pages (in place).
+        ``page_gather`` (``kernels/ops.paged_gather``) routes the page
+        fetch through the ``paged_gather_pages`` kernel.
+        """
+        from repro_torch.serving import kvpool  # deferred: engine→models cycle
+
+        view = kvpool.paged_view(cache, tables, lengths, prompt_lens,
+                                 pad_lens, meta, page_gather=page_gather)
+        logits, view = self.decode_step(params, tokens, view, pos, lora,
+                                        lora_mode)
+        cache = kvpool.scatter_decode(cache, view, tables, pos, meta)
+        return logits, cache
 
 
 def _invalidate_past(cache: Dict, lengths: torch.Tensor) -> Dict:

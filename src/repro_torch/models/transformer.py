@@ -122,14 +122,25 @@ def init_lora_stack(generator: torch.Generator, cfg: ModelConfig, *,
 def _attn_block_full(slot_p: Dict, lora_p: Optional[Dict], x: torch.Tensor,
                      cfg: ModelConfig, kind: str, positions: torch.Tensor,
                      lora_mode: LoRAMode, opts: Dict,
-                     cache_slot: Optional[Dict] = None):
+                     cache_slot: Optional[Dict] = None,
+                     prefix_kv: Optional[Dict] = None,
+                     prefix_positions: Optional[torch.Tensor] = None):
     h = rmsnorm(slot_p["ln1"], x, cfg.norm_eps)
     q, k, v = attn_lib.project_qkv(slot_p["attn"], h, cfg, positions,
                                    lora_p, lora_mode)
     if cache_slot is not None:
         attn_lib.cache_fill(cache_slot, k, v, positions)
+    k_all, v_all, kpos = k, v, positions
+    if prefix_kv is not None:
+        # suffix prefill over a cached prefix: keys/values are the
+        # gathered prefix KV (positions [0, P), post-RoPE) followed by
+        # this pass's fresh suffix KV — the key order, positions and mask
+        # a cold full prefill sees
+        k_all = torch.cat([prefix_kv["k"].to(k.dtype), k], dim=1)
+        v_all = torch.cat([prefix_kv["v"].to(v.dtype), v], dim=1)
+        kpos = torch.cat([prefix_positions.to(positions.dtype), positions])
     o = attn_lib.blockwise_attention(
-        q, k, v, positions, positions, kind=kind, cfg=cfg,
+        q, k_all, v_all, positions, kpos, kind=kind, cfg=cfg,
         block_q=opts.get("block_q", 512), block_kv=opts.get("block_kv", 1024))
     o = o.reshape(*x.shape[:-1], cfg.q_size)
     return linear({"w": slot_p["attn"]["wo"]}, o, (lora_p or {}).get("o"),
@@ -148,7 +159,9 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                   lora_mode: LoRAMode = LoRAMode(),
                   opts: Optional[Dict] = None, cache: Optional[Dict] = None,
                   seq_mask: Optional[torch.Tensor] = None,
-                  lengths: Optional[torch.Tensor] = None):
+                  lengths: Optional[torch.Tensor] = None,
+                  prefix_kv: Optional[Dict] = None,
+                  prefix_positions: Optional[torch.Tensor] = None):
     """x: [B, S, d] -> (hidden [B, S, d], aux losses[, filled cache]).
 
     With ``cache`` this is the **prefill** path: attention slots also
@@ -156,8 +169,16 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     ``lengths`` matter only to recurrent slots, which this slice does not
     run; right-padded rows are handled by the caller's last-token gather
     and cache invalidation, as in the reference.
+
+    ``prefix_kv`` (suffix prefill over a cached prefix: the shared-prefix
+    cache and chunked prefill): a tree mirroring the attention slots of
+    ``cache`` with leaves [ng, B, P, ...] — per-layer K/V for positions
+    ``prefix_positions`` [P]. Attention runs over prefix-then-fresh keys;
+    only the fresh suffix is written to ``cache``.
     """
     del seq_mask, lengths  # attention-only stack: see docstring
+    if prefix_kv is not None and cache is None:
+        raise ValueError("prefix_kv requires the prefill path (a cache)")
     opts = opts or {}
     period = stack_period(cfg)
     lora_layers = (lora or {}).get("layers", {})
@@ -167,11 +188,14 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         gp = group_view(params["layers"], gi)
         gl = group_view(lora_layers, gi) if lora_layers else {}
         gc = group_view(cache, gi) if fill else {}
+        gpre = group_view(prefix_kv, gi) if prefix_kv is not None else {}
         for p in range(period):
             kind = slot_kind(cfg, p)
             sp, lp = gp[f"slot{p}"], gl.get(f"slot{p}")
             h = h + _attn_block_full(sp, lp, h, cfg, kind, positions,
-                                     lora_mode, opts, gc.get(f"slot{p}"))
+                                     lora_mode, opts, gc.get(f"slot{p}"),
+                                     prefix_kv=gpre.get(f"slot{p}"),
+                                     prefix_positions=prefix_positions)
             h = h + _ffn_block_full(sp, lp, h, cfg, lora_mode)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"load_balance": zero, "router_z": zero}

@@ -23,13 +23,28 @@ asynchronous: a pool miss books a transfer on the manager's serialized
 channel and the slot waits in LOADING while the other slots run, with a
 queue-ahead prefetcher warming the pool for waiting requests.
 
-This slice ports the ``edgelora`` and ``edgelora_no_aas`` policies on the
-dense KV cache. The ``llamacpp`` and ``dlora`` policies, the paged KV
-arena, the prefix cache, chunked prefill and tracing raise
-``NotImplementedError`` at engine init (later slices, see ROADMAP.md).
+KV memory (``kv_backend``): 'dense' keeps a ``max_ctx`` ring per slot;
+'paged' shares one ``serving/kvpool.py`` page arena across the slots
+through per-sequence block tables. A paged decode step rebuilds the
+dense ring view from the tables (``Model.decode_step_paged``; on a GPU
+the page fetch runs through the ``paged_gather_pages`` CUDA kernel),
+so token streams equal the dense backend's; an exhausted arena defers
+admissions and LIFO-preempts the youngest slot (restart-recompute).
+On the arena, ``prefix_cache`` splices the cached pages of a matching
+block-aligned prompt prefix (``serving/prefix_cache.py``, keyed by
+execution identity, copy-on-write on a whole-prompt match) and prefills
+only the suffix; ``prefill_chunk`` bounds every prefill call to that
+many prompt tokens on either backend, interleaving chunks with decode
+steps. Both run through the same suffix-prefill steps.
+
+This port serves the ``edgelora`` and ``edgelora_no_aas`` policies with
+every KV feature above. The ``llamacpp`` and ``dlora`` policies and
+tracing raise ``NotImplementedError`` at engine init (later slices, see
+ROADMAP.md).
 """
 from __future__ import annotations
 
+import functools
 import heapq
 import math
 import time
@@ -46,15 +61,22 @@ from repro_torch.core.lora import LoRAMode, resolve_lora_backend
 from repro_torch.core.router import OracleRouter, select_adapter
 from repro_torch.core.slots import Request, Slot, SlotManager, SlotState
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ops import paged_gather
 from repro_torch.models import build_model
+from repro_torch.serving import kvpool as kvlib
+from repro_torch.serving.kvpool import PagedKVPool
 from repro_torch.serving.metrics import ServingSummary, summarize
+from repro_torch.serving.prefix_cache import PrefixCache
 
 
 @dataclass
 class EngineConfig:
     """Field for field the reference's ``EngineConfig`` (same defaults);
-    see ``repro.serving.engine.EngineConfig`` for each knob. Knobs of
-    features outside this slice must stay at their off values."""
+    see ``repro.serving.engine.EngineConfig`` for each knob.
+    ``kv_gather_kernel=None`` routes the paged page fetch through the
+    ``paged_gather_pages`` kernel when the engine runs on CUDA (the
+    reference: only on a real TPU); ``dlora_*`` and ``memory_budget``
+    belong to the policies not yet ported."""
 
     n_slots: int = 8
     top_k: int = 3
@@ -89,30 +111,23 @@ _PORTED_POLICIES = ("edgelora", "edgelora_no_aas")
 
 
 def _check_slice(cfg: ModelConfig, ecfg: EngineConfig, tracer: Any) -> str:
-    """Raise for engine features outside this slice; returns the KV
-    backend ('dense')."""
+    """Raise for engine features outside the ported slices (the
+    ``llamacpp`` and ``dlora`` policies, tracing); returns the KV backend
+    ('dense' or 'paged')."""
     if ecfg.policy not in _PORTED_POLICIES:
         if ecfg.policy in ("llamacpp", "dlora"):
             raise NotImplementedError(
                 f"policy {ecfg.policy!r} is not yet ported to repro_torch "
-                "(slice: remaining engine features and policies)")
+                "(slice: remaining engine policies and tracing)")
         raise ValueError(f"unknown policy {ecfg.policy!r}")
-    kv_backend = ecfg.kv_backend or cfg.kv_backend
-    if kv_backend == "paged":
+    if tracer is not None:
         raise NotImplementedError(
-            "kv_backend='paged' is not yet ported to repro_torch (slice: "
-            "paged KV with kvpool.py and the paged_gather_pages kernel)")
-    if kv_backend != "dense":
+            "tracer is not yet ported to repro_torch (slice: remaining "
+            "engine policies and tracing)")
+    kv_backend = ecfg.kv_backend or cfg.kv_backend
+    if kv_backend not in ("dense", "paged"):
         raise ValueError(f"unknown kv_backend {kv_backend!r} "
                          "(expected 'dense' or 'paged')")
-    unported = {"prefix_cache": ecfg.prefix_cache,
-                "prefill_chunk": ecfg.prefill_chunk is not None,
-                "tracer": tracer is not None}
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(
-                f"{name} is not yet ported to repro_torch (slice: "
-                "remaining engine features and policies)")
     return kv_backend
 
 
@@ -130,6 +145,7 @@ class EdgeLoRAEngine:
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.kv_backend = _check_slice(cfg, engine_cfg, tracer)
+        self.paged = self.kv_backend == "paged"
         self.device = resolve_device(device)
         # concrete batched-LoRA backend ('einsum' | 'sgmv')
         self.lora_backend = resolve_lora_backend(
@@ -200,8 +216,16 @@ class EdgeLoRAEngine:
     # ------------------------------------------------------------------
 
     def _build_steps(self) -> None:
-        model, scale, backend = self.model, self.cfg.lora.scale, \
-            self.lora_backend
+        model, cfg, ecfg = self.model, self.cfg, self.ecfg
+        scale, backend = cfg.lora.scale, self.lora_backend
+        self.prefix_enabled = False
+        self.prefix_cache: Optional[PrefixCache] = None
+        self.kv_gather_kernel = False
+        chunk = ecfg.prefill_chunk
+        if chunk is not None and chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1 (or None to "
+                             f"disable), got {chunk}")
+        self.chunked = chunk is not None
 
         @torch.no_grad()
         def prefill_fn(params: Any, pool: Any, tokens: Any, cache1: Any,
@@ -222,8 +246,133 @@ class EdgeLoRAEngine:
 
         self._prefill = prefill_fn
         self._decode = decode_fn
-        self.cache = self.model.init_cache(self.ecfg.n_slots,
-                                           self.ecfg.max_ctx)
+        template = self.model.init_cache(ecfg.n_slots, ecfg.max_ctx)
+        if not self.paged:
+            if ecfg.prefix_cache:
+                raise ValueError(
+                    "prefix_cache=True requires kv_backend='paged' — the "
+                    "shared pages live in the block arena")
+            self.cache = template
+            if not self.chunked:
+                return
+            # chunked prefill shares the suffix-over-cached-prefix cache
+            # contract with the prefix cache, so the same gate applies
+            reason = kvlib.prefix_unsupported_reason(self.cache,
+                                                     ecfg.max_ctx)
+            if reason is not None:
+                raise ValueError(
+                    f"prefill_chunk unsupported for {cfg.name}: {reason}")
+
+            @torch.no_grad()
+            def prefill_sfx_dense_fn(params: Any, pool: Any, tokens: Any,
+                                     cache1: Any, gcache: Any, slot_idx: Any,
+                                     sids: Any, length: Any, *,
+                                     prefix_len: int) -> Any:
+                mode = LoRAMode("batched", sids, scale, backend)
+                logits, cache1 = model.prefill_suffix_dense(
+                    params, tokens, cache1, gcache, slot_idx, length,
+                    prefix_len, pool, mode)
+                return torch.argmax(logits, -1).to(torch.int32), cache1
+
+            self._prefill_sfx_dense = prefill_sfx_dense_fn
+            return
+
+        # ---- paged KV: shared page arena + per-sequence block tables --
+        bs = ecfg.kv_block_size
+        per_seq = -(-(ecfg.max_ctx + 1) // bs)  # worst-case one-seq pages
+        n_blocks = (ecfg.kv_arena_blocks if ecfg.kv_arena_blocks
+                    else ecfg.n_slots * per_seq)
+        if n_blocks < per_seq:
+            raise ValueError(
+                f"kv_arena_blocks={n_blocks} cannot hold one max_ctx="
+                f"{ecfg.max_ctx} sequence ({per_seq} blocks of {bs}): "
+                "a lone request could never complete")
+        meta = kvlib.paged_meta(template, n_blocks, bs, ecfg.max_ctx)
+        self._kv_meta = meta
+        self.kvpool = PagedKVPool(n_blocks, bs)
+        self.cache = kvlib.build_arena(template, meta)
+        use_kernel = ecfg.kv_gather_kernel
+        if use_kernel is None:  # only where the kernel runs: CUDA
+            use_kernel = self.device.type == "cuda"
+        self.kv_gather_kernel = bool(use_kernel)
+        page_gather = (functools.partial(paged_gather, use_kernel=True)
+                       if use_kernel else None)
+
+        @torch.no_grad()
+        def paged_decode_fn(params: Any, pool: Any, tokens: Any, cache: Any,
+                            tables: Any, lengths: Any, prompt_lens: Any,
+                            pad_lens: Any, pos: Any, slot_ids: Any) -> Any:
+            mode = LoRAMode("batched", slot_ids, scale, backend)
+            logits, cache = model.decode_step_paged(
+                params, tokens, cache, tables, lengths, prompt_lens,
+                pad_lens, pos, pool, mode,
+                meta=meta, page_gather=page_gather)
+            return torch.argmax(logits, -1).to(torch.int32), cache
+
+        self._decode_paged = paged_decode_fn
+
+        # ---- shared-prefix radix cache over the arena -----------------
+        # (its suffix-prefill step doubles as chunked prefill's backbone,
+        # so it is built whenever either feature is on)
+        self.prefix_enabled = bool(ecfg.prefix_cache)
+        if not (self.prefix_enabled or self.chunked):
+            return
+        reason = kvlib.prefix_unsupported_reason(template, ecfg.max_ctx)
+        if reason is not None:
+            feature = ("prefix_cache" if self.prefix_enabled
+                       else "prefill_chunk")
+            raise ValueError(
+                f"{feature} unsupported for {cfg.name}: {reason}")
+        if self.prefix_enabled:
+            # PrefixCache wires itself in as the pool's reclaimer
+            self.prefix_cache = PrefixCache(self.kvpool, bs)
+
+        @torch.no_grad()
+        def prefill_suffix_fn(params: Any, pool: Any, tokens: Any,
+                              cache1: Any, arena: Any, tables: Any,
+                              slot_id: Any, length: Any, *,
+                              prefix_len: int) -> Any:
+            mode = LoRAMode("batched", slot_id, scale, backend)
+            logits, cache1 = model.prefill_suffix(
+                params, tokens, cache1, arena, tables, length, prefix_len,
+                pool, mode, meta=meta)
+            return torch.argmax(logits, -1).to(torch.int32), cache1
+
+        self._prefill_suffix = prefill_suffix_fn
+
+    def _dense_scatter_suffix(self, gcache: Any, bcache: Any,
+                              slot_idx: torch.Tensor, lengths: Any, *,
+                              prefix_len: int, suffix_len: int) -> Any:
+        """Land mini-ring positions [prefix_len, prefix_len + sfx) in the
+        global per-slot rings, in place (ring index == position: chunking
+        is gated to full-length rings). K/V copy unconditionally; the pos
+        leaf marks right-pad columns past each row's real prompt -1, as
+        ``_invalidate_past`` does for a whole-bucket prefill. Duplicate
+        slot rows (power-of-two padding) write identical data."""
+        dev = slot_idx.device
+        positions = prefix_len + torch.arange(suffix_len, dtype=torch.int32,
+                                              device=dev)
+        lb = torch.as_tensor(lengths, dtype=torch.int32,
+                             device=dev)[:, None]
+        valid = torch.where(positions[None, :] < lb, positions[None, :],
+                            -1)                              # [B, sfx]
+        sl = slice(prefix_len, prefix_len + suffix_len)
+        rows = slot_idx.long()
+
+        def walk(gnode: Any, bnode: Any) -> None:
+            if isinstance(gnode, dict) and "k" in gnode and "pos" in gnode:
+                for key, gleaf in gnode.items():
+                    if key == "pos":
+                        gleaf[:, rows, sl] = valid.to(gleaf.dtype)
+                    else:
+                        gleaf[:, rows, sl] = bnode[key][:, :, sl].to(
+                            gleaf.dtype)
+                return
+            for k in gnode:
+                walk(gnode[k], bnode[k])
+
+        walk(gcache, bcache)
+        return gcache
 
     def _write_slots(self, gcache: Any, bcache: Any,
                      slot_idx: torch.Tensor) -> Any:
@@ -320,8 +469,7 @@ class EdgeLoRAEngine:
         self.router_steps = 0
         self.prefill_batch_hist: Dict[int, int] = {}
         # admission: a priority heap of (priority, class, seq, request);
-        # class 0 would be requeued (preempted) work, which only the
-        # paged backend produces
+        # class 0 is requeued (KV-preempted) work, class 1 fresh arrivals
         self._queue = queue
         self._qi = 0
         self._ready: List[Tuple[int, int, int, Request]] = []
@@ -330,6 +478,8 @@ class EdgeLoRAEngine:
         self._ttft_ewma: Dict[int, float] = {}
         self._step_hist: Dict[str, int] = {}
         self.max_step_seconds = 0.0
+        self.kv_deferrals = 0
+        self.kv_preemptions = 0
         self.peak_active_slots = 0
         self.load_stall_seconds = 0.0
         self._serve_loads0 = self.manager.stats.loads
@@ -353,12 +503,35 @@ class EdgeLoRAEngine:
                         and self._reject_expired(req, now, rejected):
                     progressed = True
                     continue
+                if self.paged and not self.kvpool.can_allocate(
+                        req.prompt_len + 1):
+                    # KV arena exhausted: leave the request queued and
+                    # retry once a completion (or preemption) frees
+                    # pages. +1: the first decode write must never run
+                    # out right after admission.
+                    self.kv_deferrals += 1
+                    break
                 heapq.heappop(self._ready)
                 slot = idle.pop()
                 slot.assign(req)
                 req.admit_time = now
                 slot.admit_seq = self._admit_counter
                 self._admit_counter += 1
+                if self.paged:
+                    self.kvpool.register(req.request_id)
+                    key = (self._admission_exec_key(req)
+                           if self.prefix_enabled else None)
+                    if key is not None:
+                        # execution identity known at admission: splice
+                        # cached prefix pages now and allocate only the
+                        # suffix (the +1 headroom covers the COW page)
+                        slot.prefix_len = self._admit_prefix(req, key)
+                    else:
+                        # AAS-routed: adapter unknown until selection —
+                        # reserve the whole prompt, swap shared pages in
+                        # at SELECTING→PREFILL
+                        self.kvpool.append_tokens(req.request_id,
+                                                  req.prompt_len)
                 progressed = True
             self.peak_active_slots = max(
                 self.peak_active_slots,
@@ -420,6 +593,11 @@ class EdgeLoRAEngine:
                     continue
                 slot.sel_scores = None
                 now = self._finish_acquire(slot, res, now)
+                if self.prefix_enabled and \
+                        self._admission_exec_key(req) is None:
+                    # AAS-routed: match now that the adapter is known and
+                    # swap shared pages into the reserved table
+                    self._attach_prefix(slot)
                 progressed = True
 
             # ---- async swap-in: transfers that have landed ------------
@@ -434,27 +612,51 @@ class EdgeLoRAEngine:
             # ---- prefill (gather→batch→scatter) ----------------------
             prefilling = self.slots.in_state(SlotState.PREFILL)
             if prefilling:
+                # groups share bucket, merged-ness and start: prefix-hit
+                # rows prefill only their suffix and chunked rows resume
+                # at their progress, each start a different step shape
+                chunk = ecfg.prefill_chunk
                 groups: Dict[Tuple[int, bool, int], List[Slot]] = {}
                 for slot in prefilling:
                     self._slot_prompt(slot)
-                    groups.setdefault(
-                        (slot.bucket, slot.merged, slot.prefix_len),
-                        []).append(slot)
-                work: List[Tuple[int, List[Slot]]] = []
-                for (b, _merged, _pfx), group in groups.items():
+                    # chunked progress starts at the prefix-cache hit
+                    if slot.prefill_pos < slot.prefix_len:
+                        slot.prefill_pos = slot.prefix_len
+                    start = (slot.prefill_pos if self.chunked
+                             else slot.prefix_len)
+                    groups.setdefault((slot.bucket, slot.merged, start),
+                                      []).append(slot)
+                work: List[Tuple[int, int, List[Slot]]] = []
+                for (b, _merged, start), group in groups.items():
                     if ecfg.prefill_batching:
-                        work.append((b, group))
+                        work.append((b, start, group))
                     else:  # pre-batching baseline: one B=1 call per slot
-                        work.extend((b, [s]) for s in group)
-                for b, group in work:
-                    now += self._prefill_group(b, group, now)
+                        work.extend((b, start, [s]) for s in group)
+                for b, start, group in work:
+                    span = b - start
+                    # whole-span groups take the un-chunked paths; dense
+                    # mid-prompt progress always goes through
+                    # _prefill_chunk (_prefill_group's suffix branch is
+                    # paged-only)
+                    if not self.chunked or (chunk >= span
+                                            and (start == 0 or self.paged)):
+                        now += self._prefill_group(b, start, group, now)
+                    else:
+                        now += self._prefill_chunk(
+                            b, start, min(chunk, span), group, now)
                 progressed = True
 
             # ---- batched decode (Batch LoRA Inference) ----------------
             gen = self.slots.in_state(SlotState.GENERATE)
+            if gen and self.paged:
+                # allocate this step's page per sequence up front; a dry
+                # arena preempts the youngest admission (LIFO restart)
+                gen = self._secure_decode_blocks(gen, now)
+                progressed = True  # preemption alone is progress
             if gen:
                 # idle rows run too: token 0, pos 0, pool slot 0 — they
-                # write ring index 0 of idle slots, as in the reference
+                # write ring index 0 of idle slots (dense) or the trash
+                # page (paged), as in the reference
                 tokens = np.zeros((ecfg.n_slots,), np.int32)
                 pos = np.zeros((ecfg.n_slots,), np.int32)
                 sids = np.zeros((ecfg.n_slots,), np.int32)
@@ -462,10 +664,19 @@ class EdgeLoRAEngine:
                     tokens[slot.index] = slot.last_token
                     pos[slot.index] = slot.pos
                     sids[slot.index] = slot.adapter_slot
-                (next_toks, self.cache), dt = self._timed(
-                    ("decode",), self._decode, self.params, self.lora_pool,
-                    self._to_device(tokens), self.cache,
-                    self._to_device(pos), self._to_device(sids))
+                if self.paged:
+                    tables, lengths, plens, bwlens = \
+                        self._decode_tables(gen)
+                    (next_toks, self.cache), dt = self._timed(
+                        ("decode",), self._decode_paged, self.params,
+                        self.lora_pool, self._to_device(tokens), self.cache,
+                        tables, lengths, plens, bwlens,
+                        self._to_device(pos), self._to_device(sids))
+                else:
+                    (next_toks, self.cache), dt = self._timed(
+                        ("decode",), self._decode, self.params,
+                        self.lora_pool, self._to_device(tokens), self.cache,
+                        self._to_device(pos), self._to_device(sids))
                 now += dt
                 self.decode_steps += 1
                 next_np = next_toks.cpu().numpy()
@@ -479,6 +690,8 @@ class EdgeLoRAEngine:
                             or slot.pos >= ecfg.max_ctx - 1:
                         req.finish_time = now
                         self.manager.unpin(req.selected_adapter)
+                        if self.paged:
+                            self.kvpool.release(req.request_id)
                         completed.append(slot.release())
                 progressed = True
 
@@ -507,6 +720,16 @@ class EdgeLoRAEngine:
                     break
 
         duration = max(now, 1e-9)
+        kv_stats = None
+        if self.paged:
+            kv_stats = {"backend": "paged",
+                        "n_blocks": self.kvpool.n_blocks,
+                        "block_size": self.kvpool.block_size,
+                        **self.kvpool.stats.as_dict(),
+                        "deferrals": self.kv_deferrals,
+                        "preemptions": self.kv_preemptions}
+        prefix_stats = (self.prefix_cache.summary()
+                        if self.prefix_enabled else None)
         mst = self.manager.stats
         total_load = ((mst.loads - self._serve_loads0)
                       * self.manager.load_seconds)
@@ -531,8 +754,8 @@ class EdgeLoRAEngine:
                              "prefill_batch_hist": dict(
                                  self.prefill_batch_hist),
                              "peak_active_slots": self.peak_active_slots,
-                             "kv_stats": None,
-                             "prefix_stats": None,
+                             "kv_stats": kv_stats,
+                             "prefix_stats": prefix_stats,
                              "swap_stats": swap_stats,
                              "step_time_hist":
                                  dict(self._step_hist) or None,
@@ -598,24 +821,66 @@ class EdgeLoRAEngine:
             key = f"le_{2.0 ** exp:g}ms"
         self._step_hist[key] = self._step_hist.get(key, 0) + 1
 
-    def _prefill_group(self, bucket: int, group: List[Slot],
-                       now: float) -> float:
-        """One batched prefill over ``group`` (same bucket, mixed
-        adapters); all fresh KV slices land in the global cache in one
-        indexed write. Returns the time charged for the group."""
-        rows = self._pad_group(group)
+    def _group_rows(self, rows: List[Slot]) -> Tuple[torch.Tensor, ...]:
+        """[B] prompt lengths, adapter pool slots and slot indices of a
+        padded group, on the device."""
+        n = len(rows)
         lengths = self._to_device(np.fromiter(
-            (s.request.prompt_len for s in rows), np.int32, count=len(rows)))
-        cacheb = self._fresh_cache(len(rows))
-        toks = self._to_device(np.stack([s.padded_prompt for s in rows]))
+            (s.request.prompt_len for s in rows), np.int32, count=n))
         sids = self._to_device(np.fromiter(
-            (s.adapter_slot for s in rows), np.int32, count=len(rows)))
-        (first, cacheb), dt = self._timed(
-            ("prefill", bucket, len(rows)), self._prefill, self.params,
-            self.lora_pool, toks, cacheb, sids, lengths)
+            (s.adapter_slot for s in rows), np.int32, count=n))
         slot_idx = self._to_device(np.fromiter(
-            (s.index for s in rows), np.int64, count=len(rows)))
-        self.cache = self._write_slots(self.cache, cacheb, slot_idx)
+            (s.index for s in rows), np.int64, count=n))
+        return lengths, sids, slot_idx
+
+    def _group_tables(self, rows: List[Slot]) -> torch.Tensor:
+        """[B, max_blocks] block tables of a padded group (replica rows
+        share the real row's sequence, so their page writes repeat the
+        same data)."""
+        mb = self._kv_meta.max_blocks
+        return self._to_device(np.stack(
+            [self.kvpool.block_table(s.request.request_id, mb)
+             for s in rows]))
+
+    def _prefill_group(self, bucket: int, prefix_len: int,
+                       group: List[Slot], now: float) -> float:
+        """One batched prefill over ``group`` (same bucket, same prefix
+        length, mixed adapters); all fresh KV slices land in the global
+        cache in one indexed write per leaf. Prefix-hit groups
+        (prefix_len > 0, paged only) run the suffix-only prefill over
+        their spliced block tables. Returns the time charged for the
+        group."""
+        rows = self._pad_group(group)
+        lengths, sids, slot_idx = self._group_rows(rows)
+        cacheb = self._fresh_cache(len(rows))
+        tables = self._group_tables(rows) if self.paged else None
+        if prefix_len:
+            # suffix-only prefill: the padded prompt minus its cached
+            # prefix columns keeps key widths equal to the cold prefill
+            toks = self._to_device(np.stack(
+                [s.padded_prompt[prefix_len:] for s in rows]))
+            fn = functools.partial(self._prefill_suffix,
+                                   prefix_len=prefix_len)
+            (first, cacheb), dt = self._timed(
+                ("prefill_sfx", bucket, prefix_len, len(rows)), fn,
+                self.params, self.lora_pool, toks, cacheb, self.cache,
+                tables, sids, lengths)
+            self.cache = kvlib.scatter_suffix(
+                self.cache, cacheb, tables, lengths, prefix_len,
+                bucket - prefix_len, self._kv_meta)
+        else:
+            toks = self._to_device(np.stack([s.padded_prompt for s in rows]))
+            (first, cacheb), dt = self._timed(
+                ("prefill", bucket, len(rows)), self._prefill, self.params,
+                self.lora_pool, toks, cacheb, sids, lengths)
+            if self.paged:
+                bwlens = torch.full((len(rows),), bucket, dtype=torch.int32,
+                                    device=self.device)
+                self.cache = kvlib.scatter_prefill(
+                    self.cache, cacheb, tables, lengths, bwlens, slot_idx,
+                    self._kv_meta)
+            else:
+                self.cache = self._write_slots(self.cache, cacheb, slot_idx)
         self.prefill_steps += 1
         self.prefill_batch_hist[len(group)] = \
             self.prefill_batch_hist.get(len(group), 0) + 1
@@ -629,7 +894,161 @@ class EdgeLoRAEngine:
             req.tokens = [slot.last_token]
             slot.state = SlotState.GENERATE
             self._note_ttft(slot.bucket, req, now + dt)
+        if self.prefix_enabled:
+            # index every full prompt block (cold rows donate fresh
+            # pages; warm rows walk their matched path)
+            for slot in group:
+                self.prefix_cache.insert(
+                    self._exec_key(slot), slot.request.prompt_tokens,
+                    self.kvpool.tables[slot.request.request_id])
         return dt
+
+    def _prefill_chunk(self, bucket: int, start: int, width: int,
+                       group: List[Slot], now: float) -> float:
+        """One bounded slice of chunked prefill: prompt positions
+        [start, start + width) for every slot in ``group`` (same bucket,
+        same progress) as a suffix prefill over the KV earlier chunks
+        wrote; then either advance ``prefill_pos`` (more chunks pending:
+        decode steps interleave before the next) or emit the first token
+        (terminal chunk). start == 0 reuses the plain prefill step at
+        chunk width; later chunks the suffix step (paged) or its dense
+        sibling. Timing keys are the reference's. Returns the time
+        charged for the group."""
+        rows = self._pad_group(group)
+        end = start + width
+        real, sids, slot_idx = self._group_rows(rows)
+        # tokens past the chunk don't exist yet: the step sees lengths
+        # clamped to the chunk end; the scatters get the REAL lengths so
+        # right-pad columns stay invalid
+        lengths = real.clamp_max(end)
+        cacheb = self._fresh_cache(len(rows))
+        toks = self._to_device(np.stack(
+            [s.padded_prompt[start:end] for s in rows]))
+        if start == 0:
+            (first, cacheb), dt = self._timed(
+                ("prefill", width, len(rows)), self._prefill, self.params,
+                self.lora_pool, toks, cacheb, sids, lengths)
+        if self.paged:
+            tables = self._group_tables(rows)
+            if start:
+                fn = functools.partial(self._prefill_suffix,
+                                       prefix_len=start)
+                (first, cacheb), dt = self._timed(
+                    ("prefill_sfx", end, start, len(rows)), fn, self.params,
+                    self.lora_pool, toks, cacheb, self.cache, tables, sids,
+                    lengths)
+            # scatter_suffix covers start == 0 too (mini ring index ==
+            # position); pad columns land in the trash page
+            self.cache = kvlib.scatter_suffix(
+                self.cache, cacheb, tables, real, start, width,
+                self._kv_meta)
+        elif start == 0:
+            # fresh slots: the whole-ring copy is correct (positions past
+            # the chunk are still at their invalid init state)
+            self.cache = self._write_slots(self.cache, cacheb, slot_idx)
+        else:
+            fn = functools.partial(self._prefill_sfx_dense,
+                                   prefix_len=start)
+            (first, cacheb), dt = self._timed(
+                ("prefill_sfx_dense", end, start, len(rows)), fn,
+                self.params, self.lora_pool, toks, cacheb, self.cache,
+                slot_idx, sids, lengths)
+            self.cache = self._dense_scatter_suffix(
+                self.cache, cacheb, slot_idx, real, prefix_len=start,
+                suffix_len=width)
+        self.prefill_steps += 1
+        self.prefill_batch_hist[len(group)] = \
+            self.prefill_batch_hist.get(len(group), 0) + 1
+        first_np = first.cpu().numpy()
+        for i, slot in enumerate(group):
+            req = slot.request
+            if req.prompt_len <= end:
+                # terminal chunk: _prefill_group's completion protocol
+                slot.pos = req.prompt_len
+                slot.last_token = int(first_np[i])
+                req.first_token_time = now + dt
+                req.generated = 1
+                req.tokens = [slot.last_token]
+                slot.state = SlotState.GENERATE
+                self._note_ttft(slot.bucket, req, now + dt)
+                if self.prefix_enabled:
+                    self.prefix_cache.insert(
+                        self._exec_key(slot), req.prompt_tokens,
+                        self.kvpool.tables[req.request_id])
+            else:
+                slot.prefill_pos = end
+        return dt
+
+    # ------------------------------------------------------------------
+    # shared-prefix radix cache (splice, COW, stats)
+    # ------------------------------------------------------------------
+
+    def _exec_key(self, slot: Slot) -> Tuple:
+        """Execution identity under which prefix KV is shareable: KV at
+        depth > 0 depends on the adapter (and on merged execution)."""
+        return (slot.merged, slot.request.selected_adapter)
+
+    def _admission_exec_key(self, req: Request) -> Optional[Tuple]:
+        """The execution identity a request will run under when it is
+        known at admission (explicit adapter, ``edgelora_no_aas``). None
+        for AAS-routed requests: admission reserves conservatively and
+        the prefix match happens at selection."""
+        if req.adapter_id is not None:
+            return (False, req.adapter_id)
+        if self.ecfg.policy == "edgelora_no_aas":
+            return (False, req.true_adapter)
+        return None
+
+    def _admit_prefix(self, req: Request, exec_key: Tuple) -> int:
+        """Admission-time prefix adoption: match, splice shared pages,
+        allocate only the suffix. Returns the prefix length served from
+        cache (0 on a miss)."""
+        blocks = self.prefix_cache.match(exec_key, req.prompt_tokens)
+        matched = len(blocks) * self.kvpool.block_size
+        prefix_len = min(matched, req.prompt_len - 1)
+        if prefix_len <= 0:
+            blocks, matched, prefix_len = [], 0, 0
+        pair = self.kvpool.adopt_prefix(req.request_id, blocks,
+                                        req.prompt_len,
+                                        cow_last=prefix_len < matched)
+        st = self.prefix_cache.stats
+        if pair is not None:
+            self.cache = kvlib.copy_block(self.cache, *pair,
+                                          self._kv_meta)
+            st.cow_copies += 1
+        if prefix_len:
+            st.hit_requests += 1
+            st.hit_tokens += matched
+            st.saved_prefill_tokens += prefix_len
+        return prefix_len
+
+    def _attach_prefix(self, slot: Slot) -> None:
+        """At SELECTING→PREFILL (adapter now known): splice the longest
+        cached block-aligned prefix into the sequence's reserved table
+        (releasing the private pages admission reserved for that span)
+        and shrink the prefill to the suffix. A whole-prompt match keeps
+        one token to re-prefill, inside a copy-on-write page."""
+        req = slot.request
+        slot.prefix_len = 0
+        blocks = self.prefix_cache.match(self._exec_key(slot),
+                                         req.prompt_tokens)
+        if not blocks:
+            return
+        matched = len(blocks) * self.kvpool.block_size
+        prefix_len = min(matched, req.prompt_len - 1)
+        if prefix_len <= 0:
+            return
+        pair = self.kvpool.replace_prefix(req.request_id, blocks,
+                                          cow_last=prefix_len < matched)
+        st = self.prefix_cache.stats
+        if pair is not None:
+            self.cache = kvlib.copy_block(self.cache, *pair,
+                                          self._kv_meta)
+            st.cow_copies += 1
+        st.hit_requests += 1
+        st.hit_tokens += matched
+        st.saved_prefill_tokens += prefix_len
+        slot.prefix_len = prefix_len
 
     def _padded_prompt(self, req: Request, bucket: int) -> np.ndarray:
         toks = np.zeros((bucket,), np.int32)
@@ -716,3 +1135,80 @@ class EdgeLoRAEngine:
             if self.manager.channel_free_at > horizon:
                 break
             self.manager.prefetch(aid, now=now, protect=protect)
+
+    # ------------------------------------------------------------------
+    # paged-KV scheduling (block tables, preemption)
+    # ------------------------------------------------------------------
+
+    def _decode_tables(self, gen: List[Slot]) -> Tuple[torch.Tensor, ...]:
+        """[n_slots, max_blocks] page table and [n_slots] written lengths
+        / prompt lengths / prefill buckets for a decode step, on the
+        device. Rows of slots not decoding this tick are -1 / 0: their
+        reads and writes go to the trash page."""
+        mb = self._kv_meta.max_blocks
+        n = self.ecfg.n_slots
+        tables = np.full((n, mb), -1, np.int32)
+        lengths = np.zeros((n,), np.int32)
+        plens = np.zeros((n,), np.int32)
+        bwlens = np.zeros((n,), np.int32)
+        for slot in gen:
+            tables[slot.index] = self.kvpool.block_table(
+                slot.request.request_id, mb)
+            lengths[slot.index] = slot.pos  # tokens written pre-step
+            plens[slot.index] = slot.request.prompt_len
+            bwlens[slot.index] = slot.bucket  # padded prefill write span
+        return tuple(self._to_device(a)
+                     for a in (tables, lengths, plens, bwlens))
+
+    def _secure_decode_blocks(self, gen: List[Slot],
+                              now: float) -> List[Slot]:
+        """Allocate one page-extension per decoding sequence, oldest
+        admission first. When the arena is dry, preempt the *youngest*
+        active slot (LIFO restart-recompute). The init-time capacity
+        check (arena ≥ one max_ctx sequence) guarantees the oldest
+        admission always makes progress."""
+        secured: List[Slot] = []
+        for slot in sorted(gen, key=lambda s: s.admit_seq):
+            if slot.state != SlotState.GENERATE:
+                continue  # preempted as an earlier slot's victim
+            rid = slot.request.request_id
+            alive = True
+            while not self.kvpool.can_append(rid, 1):
+                victims = [s for s in self.slots.slots
+                           if s.state != SlotState.IDLE and s is not slot
+                           and s not in secured]
+                if victims:
+                    self._preempt(max(victims,
+                                      key=lambda s: s.admit_seq), now)
+                else:
+                    self._preempt(slot, now)
+                    alive = False
+                    break
+            if alive:
+                self.kvpool.append_tokens(rid, 1)
+                secured.append(slot)
+        return [s for s in gen if s in secured]
+
+    def _preempt(self, slot: Slot, now: float) -> None:
+        """Evict an in-flight request to free its KV pages: restart
+        semantics — partial output is discarded and the request
+        re-admits (and re-prefills) ahead of new arrivals once capacity
+        returns."""
+        del now  # the reference's tracing hook (not ported)
+        req = slot.request
+        self.kvpool.release(req.request_id)
+        if not slot.merged and slot.state in (
+                SlotState.LOADING, SlotState.PREFILL, SlotState.GENERATE):
+            self.manager.unpin(req.selected_adapter)
+        if req.selected_adapter is not None:
+            req.prefetch_hint = req.selected_adapter
+        req.selected_adapter = None
+        req.first_token_time = None
+        req.generated = 0
+        req.tokens = []
+        # restart semantics reset the admission clock too: the TTFT
+        # estimator must not learn from a partially-served admission
+        req.admit_time = None
+        slot.release()
+        self._push_ready(req, requeued=True)
+        self.kv_preemptions += 1

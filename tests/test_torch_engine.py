@@ -9,8 +9,9 @@
   tick per call) in each engine, so both virtual clocks see identical
   step durations. Token streams and the whole ``ServingSummary``,
   timing fields included, must be equal.
-* The CLI serves on the CPU when asked to, and nothing outside the slice
-  degrades silently.
+* The CLI serves on the CPU when asked to, and nothing outside the
+  ported slices degrades silently (the paged arena, prefix cache and
+  chunked prefill: ``tests/test_torch_paged.py``).
 """
 import dataclasses
 import json
@@ -184,14 +185,14 @@ def _summary_json(summary):
 @pytest.mark.parametrize("change,msg", [
     (dict(policy="llamacpp"), "policy 'llamacpp'"),
     (dict(policy="dlora"), "policy 'dlora'"),
-    (dict(kv_backend="paged"), "paged"),
-    (dict(prefix_cache=True), "prefix_cache"),
-    (dict(prefill_chunk=16), "prefill_chunk"),
+    (dict(tracer=object()), "tracer"),
 ])
 def test_unported_features_raise(change, msg):
     _, tcfg = _configs()
+    tracer = change.pop("tracer", None)
     with pytest.raises(NotImplementedError, match=msg):
-        EdgeLoRAEngine(tcfg, EngineConfig(**change), device="cpu")
+        EdgeLoRAEngine(tcfg, EngineConfig(**change), tracer=tracer,
+                       device="cpu")
 
 
 def _run_cli(*args):

@@ -1,11 +1,12 @@
-"""PyTorch port's SGMV path vs the JAX package's (Pallas in interpret
-mode) on the same numpy inputs.
+"""PyTorch port's kernel paths vs the JAX package's (Pallas in interpret
+mode) on the same numpy inputs: SGMV, and the paged KV page gather.
 
 On the CPU the port's wrappers run their kernels' plain versions, so
 these tests hold the port's grouping plan, padded-buffer layout, plain
 shrink/expand arithmetic, scatter, scale and cast against the reference.
 The CUDA kernels themselves are compared with the plain versions on the
-card by ``chip_smoke.py`` and by the ``cuda``-marked test below.
+card by ``chip_smoke.py`` and by the ``cuda``-marked tests of
+``tests/test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -178,27 +179,71 @@ def test_wrappers_reject_bad_shapes():
                          torch.zeros(3, dtype=torch.int32), blk_t=8)
 
 
-@pytest.mark.cuda
+# ---------------------------------------------------------------------------
+# paged_gather_pages: the paged KV arena's page fetch
+# ---------------------------------------------------------------------------
+
+from repro.kernels import paged_gather as jpaged  # noqa: E402
+from repro_torch.kernels import paged_gather as tpaged  # noqa: E402
+
+
+def _paged_inputs(dtype, ng=2, n_pages=7, bs=4, kh=2, hd=8, b=3, mb=5,
+                  seed=0):
+    """An arena with a non-power-of-two page count and tables that mix
+    shuffled pages, repeats and -1 (padding and a whole idle row)."""
+    rng = np.random.default_rng(seed)
+    arena = rng.normal(size=(ng, n_pages, bs, kh, hd)).astype(np.float32)
+    arena = np.asarray(jnp.asarray(arena, getattr(jnp, dtype)))
+    tables = np.full((b, mb), -1, np.int32)
+    tables[0, :4] = rng.permutation(n_pages)[:4]
+    tables[1, :3] = [5, 5, 0]                        # repeats
+    # row 2 stays all -1: an idle decode row
+    return arena, tables
+
+
+def _as_torch(a):
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernels_match_plain(dtype):
-    """The CUDA kernels against their plain versions on the card."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    dev = torch.device("cuda")
-    (_, _, _), (xt, at, bt), slots = _inputs(dtype, 40, 1000, 333, 32, 5)
-    xt, at, bt = xt.to(dev), at.float().to(dev), bt.float().to(dev)
-    slots_t = torch.from_numpy(slots).to(dev)
-    blk_t = ops.auto_blk_t(40, 5)
-    plan = ops.plan_grouping(slots_t, 5, blk_t)
-    xbuf = xt.new_zeros((plan.n_padded, 1000))
-    xbuf[plan.padded_pos.long()] = xt[plan.perm]
-    s = sgmv.sgmv_shrink(xbuf, at, plan.block_slots, blk_t=blk_t)
-    y = sgmv.sgmv_expand(s, bt, plan.block_slots, blk_t=blk_t,
-                         compute_dtype=xt.dtype)
-    s_ref = sgmv.shrink_plain(xbuf, at, plan.block_slots, blk_t=blk_t)
-    y_ref = sgmv.expand_plain(s, bt, plan.block_slots, blk_t=blk_t,
-                              compute_dtype=xt.dtype)
-    torch.cuda.synchronize()
-    for got, want in ((s, s_ref), (y, y_ref)):
-        err = ((got - want).abs().max() / want.abs().max()).item()
-        assert err < 1e-5, err
+def test_paged_gather_matches_reference_exactly(dtype):
+    arena, tables = _paged_inputs(dtype)
+    ja, jt = jnp.asarray(arena), jnp.asarray(tables)
+    want_kernel = jops.paged_gather(ja, jt, interpret=True, use_kernel=True)
+    want_index = jops.paged_gather(ja, jt, use_kernel=False)
+    ta, tt = _as_torch(arena), torch.from_numpy(tables)
+    tpaged.reset_launches()
+    for use_kernel in (True, False):
+        got = ops.paged_gather(ta, tt, use_kernel=use_kernel)
+        assert got.dtype == ta.dtype and got.shape == (2, 3, 20, 2, 8)
+        got = got.float().numpy()
+        for want in (want_kernel, want_index):
+            np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+    # -1 reads the last (trash) page: a floor modulo
+    np.testing.assert_array_equal(
+        ops.paged_gather(ta, tt)[:, 2, :4].float().numpy(),
+        arena[:, -1].astype(np.float32))
+    assert tpaged.launches == {"paged_gather_pages": 0}
+
+
+def test_paged_gather_pages_plain_matches_pallas():
+    """The wrapper on [ng, n_pages, bs, F] against the Pallas kernel in
+    interpret mode."""
+    arena, tables = _paged_inputs("float32", n_pages=11, mb=6, seed=3)
+    flat = arena.reshape(*arena.shape[:3], -1)
+    want = jpaged.paged_gather_pages(jnp.asarray(flat), jnp.asarray(tables),
+                                     interpret=True)
+    got = tpaged.paged_gather_pages(torch.from_numpy(flat.copy()),
+                                    torch.from_numpy(tables))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_paged_gather_rejects_bad_shapes():
+    with pytest.raises(ValueError, match="arena must be"):
+        tpaged.paged_gather_pages(torch.zeros(2, 3, 4),
+                                  torch.zeros(1, 2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="tables must be"):
+        tpaged.paged_gather_pages(torch.zeros(2, 3, 4, 5),
+                                  torch.zeros(2, dtype=torch.int32))
