@@ -2,15 +2,17 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # the whole check; needs one CUDA GPU
-    python3 chip_smoke.py --profile   # also profile decode steps by kernel
+    python3 chip_smoke.py --profile   # also profile decode steps by kernel,
+                                      # attention kernels on and off
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
 1. The card: ``nvidia-smi`` name and power limit, torch/CUDA versions;
    TF32 off for matmuls and cuDNN.
 2. Build every CUDA kernel of the port with nvcc (``sm_90a``) from the
-   sources in this checkout (``sgmv.cu``, ``paged_gather.cu``: one nvcc
-   per source, started together; each source's seconds printed).
+   sources in this checkout (``sgmv.cu``, ``paged_gather.cu``,
+   ``decode_attention.cu``, ``flash_prefill.cu``: one nvcc per source,
+   started together; each source's seconds printed).
 3. Kernels: ``sgmv_shrink``, ``sgmv_expand`` and the full ``ops.sgmv`` on
    the card against their plain PyTorch versions at the main path's
    shapes (Llama-3.1-8B LoRA: d ∈ {4096, 1024, 14336}, r = 32, R = 20
@@ -26,10 +28,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    decode step's shape (32 layers, 137 pages of 16 tokens × 8·128
    features, 8 rows × 17 table entries mixing shuffled pages, repeats
    and an idle all -1 row) in bf16 and f32, bit-equal to its plain
-   version, timed beside it, ``torch.index_select`` and its bound. The
-   library attention call (``scaled_dot_product_attention`` with GQA)
-   is timed at the shapes of the two TPU attention kernels not yet
-   ported, as their yardstick.
+   version, timed beside it, ``torch.index_select`` and its bound.
+   ``flash_decode`` at the decode step's layer (q [8, 32, 128], a
+   256-entry ring [8, 256, 8, 128], per-row positions with one idle
+   all -1 row) in bf16, f32 and int8 K/V, and ``flash_prefill`` at a
+   prefill group's layer ([8, 64, 32, 128] causal) and a suffix step's
+   (32 queries over 64 + 32 keys), bf16, against their plain versions,
+   each timed beside its plain version, the library call
+   (``scaled_dot_product_attention`` with GQA, a yardstick only) and its
+   bound.
 4. Serve: ``EdgeLoRAEngine`` on the full Llama-3.1-8B config (bf16, 32
    layers, random weights from a seeded ``torch.Generator`` on the card,
    rescaled to fan-in scale),
@@ -39,13 +46,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    just before the serve and must have risen just after, in its prefill
    steps and in its decode steps alike (each counted apart). On one decode
    step's inputs, the ``sgmv`` and ``einsum`` backends must agree on the
-   logits.
+   logits. Every serve runs with the default ``attn_kernel=None``, which
+   must resolve to the attention kernels: ``flash_prefill`` launches 32
+   times per prefill step call (suffix and chunk steps included),
+   ``flash_decode`` 32 times per decode step call. Then one full-depth
+   bf16 prefill and one decode step on the serve's weights with
+   ``attn_kernel`` on and off: logits within 5 % of max|logit|, top-1
+   equal on every live row whose top-2 margin exceeds that.
 5. Dense vs paged KV, same weights and adapters: one burst trace served
    twice under the same deterministic timer (``FakeTime`` through the
    engine's ``timer=`` hook), ``kv_backend='dense'`` then ``'paged'``
    (``kv_gather_kernel`` left to resolve to the CUDA kernel). Every
-   request's token stream must be equal, and the page gather must have
-   launched exactly twice (k and v) per paged decode step call.
+   request's token stream and the summaries (but for ``kv_stats``) must
+   be equal, and the page gather must have launched exactly twice (k and
+   v) per paged decode step call.
 6. Paged KV with the shared-prefix cache and chunked prefill on the real
    timer: requests of 4 tenants open with their tenant's 32-token system
    prompt (prompts 40–96 tokens), prefilled in chunks of 32. All must
@@ -104,6 +118,15 @@ TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 # through 32 layers; held to 5e-2 of max|logit| and to top-1 agreement on
 # rows whose top-2 margin exceeds that.
 BACKEND_TOL = 5e-2
+# attention kernels vs their plain versions: both in f32 in different
+# orders (1e-5 of max|plain|); a bf16 output may differ by one rounding
+# step, 2^-8 of its value (1e-2).
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# attn_kernel on vs off over one full-depth bf16 prefill and decode step:
+# the plain route rounds the softmax probabilities to bf16 where the
+# kernels keep f32, a few bf16 steps per layer carried through 32 layers
+# (the sgmv vs einsum check's bound, BACKEND_TOL)
+ATTN_STEP_TOL = 5e-2
 # adapters: A ~ N(0, 1/r) as the reference draws it; B ~ N(0, B_STD^2)
 # instead of zeros, which makes each LoRA delta about 15% of its base
 # projection at fan-in scale
@@ -364,49 +387,216 @@ def gather_phase(torch, dev):
     return rows
 
 
-def attention_yardsticks(torch, dev):
-    """Library attention (``scaled_dot_product_attention``, GQA) at the
-    shapes of the two TPU attention kernels still to be ported, with the
-    bound of the work their code does there: ``flash_decode`` over the
-    serve's decode step (8 rows, one query each, a 256-entry ring of 8
-    KV heads) and ``flash_prefill`` over a full prefill group (8 rows of
-    64 tokens, causal). bf16."""
+def attention_phase(torch, dev):
+    """``flash_decode`` and ``flash_prefill`` against their plain versions
+    at the main path's shapes, each timed beside its plain version, the
+    library call (``scaled_dot_product_attention`` with GQA; a yardstick
+    only, the port never calls it) and its bound.
+
+    decode: one decode step's layer (q [8, 32, 128], a 256-entry ring
+    [8, 256, 8, 128]) with per-row positions (rows at depths 17..256, the
+    deepest wrapped, and one idle row whose ring is empty), in bf16, f32,
+    and int8 K/V with f32 scales (bf16 q). prefill: a full prefill
+    group's layer ([8, 64, 32, 128] causal) and a suffix step's (32
+    queries at positions 64..95 over 64 cached + 32 fresh keys), bf16.
+    Bounds count what these inputs need: K and V of visible entries
+    (only V of a row with no visible key, whose output is the mean of
+    V), positions, q and out; 4·hd operations per visible (query head,
+    key) pair."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
 
     gen = torch.Generator(device=dev).manual_seed(99)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    bf = torch.bfloat16
-    h, kh, hd, b = N_HEADS, N_KV_HEADS, HEAD_DIM, N_SLOTS
+    h, kh, hd, b, c = N_HEADS, N_KV_HEADS, HEAD_DIM, N_SLOTS, MAX_CTX
+    g = h // kh
+    rows = []
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    out = []
-    # flash_decode: q [B,H,hd], k,v [B,C,KH,hd], kv_pos [B,C] int32
-    c = MAX_CTX
-    q, k, v = randn(b, h, 1, hd), randn(b, kh, c, hd), randn(b, kh, c, hd)
-    mask = torch.ones(b, 1, 1, c, dtype=torch.bool, device=dev)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * b * c
-    bnd, by = bound_ms(nbytes, 4.0 * b * h * c * hd, "bfloat16")
-    out.append(dict(
-        kernel="flash_decode", shape=f"q [{b},{h},{hd}] k,v [{b},{c},{kh},"
-        f"{hd}] bf16", bound_ms=bnd, bound_by=by,
-        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True), flush)))
-    # flash_prefill: q [B,S,H,hd], k,v [B,S,KH,hd], causal
-    sq = 64
-    q, k, v = randn(b, h, sq, hd), randn(b, kh, sq, hd), randn(b, kh, sq, hd)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4.0 * b * h * hd * sq * (sq + 1) / 2   # causal half
-    bnd, by = bound_ms(nbytes, flops, "bfloat16")
-    out.append(dict(
-        kernel="flash_prefill", shape=f"q [{b},{sq},{h},{hd}] k,v [{b},{sq},"
-        f"{kh},{hd}] bf16 causal", bound_ms=bnd, bound_by=by,
-        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), flush)))
-    for r in out:
-        log("attention yardstick " + json.dumps(r))
-    return out
+    def err(got, want, dname):
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()), "non-finite output")
+        d = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        check(d <= ATTN_TOL[dname] * scale,
+              f"max abs err {d:.3e} > {ATTN_TOL[dname]:.1e} x {scale:.3e}")
+        return d
+
+    # ---- flash_decode ---------------------------------------------------
+    depth = torch.tensor([256, 200, 128, 64, 33, 17, 300, 0],
+                         dtype=torch.int32, device=dev)
+    idx = torch.arange(c, dtype=torch.int32, device=dev)
+    # ring index i of a row at depth n holds the newest position p < n
+    # with p % c == i (-1 where none): row 6 has wrapped
+    newest = (depth[:, None] - 1 - idx) // c * c + idx
+    kv_pos = torch.where(newest >= 0, newest, -1).to(torch.int32)
+    q_pos = (depth - 1).clamp_min(0)
+    visible = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    no_key = ~visible.any(1)
+    check(bool(no_key[-1]) and int(no_key.sum()) == 1, "decode rows")
+    n_vis = int(visible.sum())
+    mask = visible[:, None, None, :]                       # SDPA's mask
+    for dname, kvname in (("bfloat16", "bfloat16"), ("float32", "float32"),
+                          ("bfloat16", "int8")):
+        dtype = getattr(torch, dname)
+        q = randn(b, h, hd, dtype=dtype)
+        if kvname == "int8":
+            k = torch.randint(-127, 128, (b, c, kh, hd), generator=gen,
+                              device=dev, dtype=torch.int8)
+            v = torch.randint(-127, 128, (b, c, kh, hd), generator=gen,
+                              device=dev, dtype=torch.int8)
+            ks = torch.rand(b, c, kh, generator=gen, device=dev) / 127
+            vs = torch.rand(b, c, kh, generator=gen, device=dev) / 127
+            scales = dict(k_scale=ks, v_scale=vs)
+            kv_es, extra = 1, 4        # an f32 scale per (entry, kv head)
+        else:
+            k, v = randn(b, c, kh, hd, dtype=dtype), randn(b, c, kh, hd,
+                                                          dtype=dtype)
+            scales, kv_es, extra = {}, dtype.itemsize, 0
+        got = da.flash_decode(q, k, v, kv_pos, q_pos, **scales)
+        want = da.flash_decode_plain(q, k, v, kv_pos, q_pos, **scales)
+        e = err(got, want, dname)
+        # the idle row is the mean of V over its ring
+        vf = v.float() * (scales["v_scale"][..., None] if scales else 1.0)
+        e_idle = (got[-1].float() - vf[-1].mean(0).repeat_interleave(
+            g, 0)).abs().max().item()
+        check(e_idle <= ATTN_TOL[dname] * vf[-1].abs().max().item(),
+              f"idle decode row is not the mean of V ({e_idle:.3e})")
+        per_entry = kh * (hd * kv_es + extra)      # K or V bytes of entry
+        nbytes = (2 * q.numel() * q.element_size() + kv_pos.numel() * 4
+                  + b * 4 + n_vis * 2 * per_entry
+                  + int(no_key.sum()) * c * per_entry)
+        flops = 4.0 * hd * g * n_vis + 2.0 * hd * h * c * int(no_key.sum())
+        bnd, by = bound_ms(nbytes, flops, dname)
+        qs = q[:, :, None, :]
+        ksd = (k.float() * scales["k_scale"][..., None]).to(dtype) \
+            if scales else k
+        vsd = vf.to(dtype) if scales else v
+        kl, vl = (x.transpose(1, 2).contiguous() for x in (ksd, vsd))
+        rows.append(dict(
+            kernel="flash_decode", dtype=dname, kv_dtype=kvname,
+            shape=f"q [{b},{h},{hd}] k,v [{b},{c},{kh},{hd}] {kvname}, "
+                  f"[B] q_pos, one idle row", visible_entries=n_vis,
+            max_abs_err=e, ms=cuda_ms(torch, lambda: da.flash_decode(
+                q, k, v, kv_pos, q_pos, **scales), flush),
+            plain_ms=cuda_ms(torch, lambda: da.flash_decode_plain(
+                q, k, v, kv_pos, q_pos, **scales), flush),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, kl, vl, attn_mask=mask, enable_gqa=True), flush),
+            bound_ms=bnd, bound_by=by))
+        log("flash_decode " + json.dumps(rows[-1]))
+
+    # ---- flash_prefill --------------------------------------------------
+    for label, sq, p0 in (("prefill", 64, 0), ("suffix", 32, 64)):
+        dtype = torch.bfloat16
+        skv = p0 + sq
+        q = randn(b, sq, h, hd, dtype=dtype)
+        k, v = randn(b, skv, kh, hd, dtype=dtype), randn(b, skv, kh, hd,
+                                                          dtype=dtype)
+        qpos = torch.arange(p0, skv, dtype=torch.int32, device=dev)
+        kpos = torch.arange(skv, dtype=torch.int32, device=dev)
+        kw = dict(qpos=qpos, kpos=kpos) if p0 else {}
+        got = fp.flash_prefill(q, k, v, **kw)
+        want = fp.flash_prefill_plain(q, k, v, **kw)
+        e = err(got, want, "bfloat16")
+        vis = (kpos[None, :] <= qpos[:, None])
+        pairs = int(vis.sum())
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + (
+            4 * (sq + skv) if p0 else 0)
+        bnd, by = bound_ms(nbytes, 4.0 * b * h * hd * pairs, "bfloat16")
+        ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if p0:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    ql, kl, vl, attn_mask=vis, enable_gqa=True)
+        else:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    ql, kl, vl, is_causal=True, enable_gqa=True)
+        rows.append(dict(
+            kernel="flash_prefill", dtype="bfloat16", case=label,
+            shape=f"q [{b},{sq},{h},{hd}] k,v [{b},{skv},{kh},{hd}] bf16 "
+                  f"causal, q positions {p0}..{skv - 1}",
+            visible_pairs=pairs, max_abs_err=e,
+            ms=cuda_ms(torch, lambda: fp.flash_prefill(q, k, v, **kw),
+                       flush),
+            plain_ms=cuda_ms(torch, lambda: fp.flash_prefill_plain(
+                q, k, v, **kw), flush),
+            library_ms=cuda_ms(torch, lib, flush),
+            bound_ms=bnd, bound_by=by))
+        log("flash_prefill " + json.dumps(rows[-1]))
+    return rows
+
+
+def step_check_phase(torch, dev, shared):
+    """One full-depth bf16 prefill and one decode step of the full model
+    with ``attn_kernel=True`` and ``False`` on the same inputs (weights of
+    the serve, no adapters): logits within ATTN_STEP_TOL of max|logit|,
+    top-1 equal on every live row whose top-2 margin exceeds that (the
+    rule of the sgmv vs einsum check); the agreement over all live rows
+    is reported beside it. The decode step runs over the kernel
+    route's prefilled cache, cloned for each route; row 7 is idle (token
+    0, position 0), as the engine runs it."""
+    from repro_torch.models import build_model
+
+    cfg, params = shared["cfg"], shared["params"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, s = N_SLOTS, 64
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev, dtype=torch.int32)
+    lengths = torch.tensor([64, 60, 50, 40, 33, 20, 9, 64],
+                           dtype=torch.int32, device=dev)
+    models = {on: build_model(cfg, dev, attn_kernel=on)
+              for on in (True, False)}
+    out, caches = {}, {}
+    with torch.no_grad():
+        for on, m in models.items():
+            logits, caches[on] = m.prefill(params, {"tokens": tokens},
+                                           m.init_cache(b, MAX_CTX),
+                                           lengths=lengths)
+            out[("prefill", on)] = logits.float()
+        nxt = out[("prefill", True)].argmax(-1).int()
+        pos = lengths.clone()
+        nxt[-1], pos[-1] = 0, 0
+        for on, m in models.items():
+            cache = {k: {n: v.clone() for n, v in c.items()}
+                     for k, c in caches[True].items()}
+            logits, _ = m.decode_step(params, nxt, cache, pos)
+            out[("decode", on)] = logits.float()
+    torch.cuda.synchronize()
+    live = {"prefill": torch.ones(b, dtype=torch.bool, device=dev),
+            "decode": torch.arange(b, device=dev) < b - 1}
+    res = {}
+    for step in ("prefill", "decode"):
+        kern, plain = out[(step, True)], out[(step, False)]
+        d = (kern - plain).abs().max().item()
+        scale = plain.abs().max().item()
+        top2 = plain.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        agree = kern.argmax(-1) == plain.argmax(-1)
+        # rows where the plain route's top-2 margin exceeds the logit
+        # tolerance: there a flip is a fault, not a tie broken the other
+        # way by rounding (bf16 logits tie exactly at times)
+        clear = live[step] & (margin > ATTN_STEP_TOL * scale)
+        res[step] = dict(max_abs=d, max_logit=scale,
+                         top1_agree_live=int(agree[live[step]].sum()),
+                         live_rows=int(live[step].sum()),
+                         clear_rows=int(clear.sum()),
+                         top2_margins_live=margin[live[step]].tolist())
+        log(f"attn_kernel on vs off, full-depth bf16 {step}: "
+            + json.dumps(res[step]))
+        check(d <= ATTN_STEP_TOL * scale,
+              f"{step}: kernel vs plain attention logits differ by {d:.3e}"
+              f" > {ATTN_STEP_TOL} x {scale:.3e}")
+        check(bool(agree[clear].all()),
+              f"{step}: top-1 differs on a live row whose top-2 margin "
+              f"exceeds {ATTN_STEP_TOL} x max|logit|")
+    del models, caches
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -419,7 +609,6 @@ def serve_phase(torch, dev, profile: bool):
 
     from repro_torch.configs import get_config
     from repro_torch.core.lora import LoRAMode
-    from repro_torch.kernels import sgmv
     from repro_torch.models.transformer import init_lora_stack
     from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
     from repro_torch.serving.workload import WorkloadConfig, generate_trace
@@ -453,6 +642,8 @@ def serve_phase(torch, dev, profile: bool):
     init_s = time.perf_counter() - t0
     check(engine.lora_backend == "sgmv",
           f"lora_backend 'auto' resolved to {engine.lora_backend!r}")
+    check(engine.attn_kernel and engine.model.attn_kernel,
+          "attn_kernel did not resolve to the kernels on CUDA")
     # The engine draws the reference's init: stacked weights with stddev
     # 1/sqrt(n_groups). Rescale them in place to 1/sqrt(d_in) (fan-in) so
     # activations stay O(1) and a bf16 step is well conditioned enough
@@ -475,7 +666,7 @@ def serve_phase(torch, dev, profile: bool):
     # record one decode step's real inputs, time every step call, and
     # count each kernel's launches per path (prefill, decode)
     step_ms = {"prefill": [], "decode": []}
-    path_launches = {p: dict.fromkeys(sgmv.launches, 0) for p in step_ms}
+    path_launches = {p: dict.fromkeys(_counts(), 0) for p in step_ms}
     captured = {}
 
     def timed(name, fn):
@@ -487,12 +678,12 @@ def serve_phase(torch, dev, profile: bool):
                                 cache={k: {n: v.clone() for n, v in
                                            c.items()}
                                        for k, c in cache.items()})
-            before = dict(sgmv.launches)
+            before = _counts()
             t = time.perf_counter()
             out = fn(*args)
             torch.cuda.synchronize()
             step_ms[name].append(1e3 * (time.perf_counter() - t))
-            for k, n in sgmv.launches.items():
+            for k, n in _counts().items():
                 path_launches[name][k] += n - before[k]
             return out
         return run
@@ -502,12 +693,12 @@ def serve_phase(torch, dev, profile: bool):
     engine._decode = timed("decode", engine._decode)
 
     torch.cuda.reset_peak_memory_stats(dev)
-    sgmv.reset_launches()
+    _reset_counts()
     t0 = time.perf_counter()
     summary = engine.serve(trace)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = dict(sgmv.launches)
+    launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
     check(summary.n_completed == summary.n_requests == len(trace),
@@ -518,9 +709,17 @@ def serve_phase(torch, dev, profile: bool):
         check(all(0 <= t < cfg.vocab_size for t in r.tokens),
               f"request {r.request_id}: token out of range")
     for path, counts in path_launches.items():
-        for name, n in counts.items():
-            check(n > 0, f"{name} was never launched in the serve's "
-                  f"{path} steps")
+        for name in ("sgmv_shrink", "sgmv_expand"):
+            check(counts[name] > 0, f"{name} was never launched in the "
+                  f"serve's {path} steps")
+    check(path_launches["prefill"]["flash_decode"] == 0
+          and path_launches["decode"]["flash_prefill"] == 0,
+          f"attention kernel on the wrong path: {path_launches}")
+    _check_attention_launches(
+        "dense serve", launches, len(step_ms["prefill"]),
+        len(step_ms["decode"]))
+    check(launches["paged_gather_pages"] == 0,
+          "the dense serve launched the page gather")
     check(all(launches[k] == sum(c[k] for c in path_launches.values())
               for k in launches), "launches outside the prefill and decode "
           f"steps: {launches} vs {path_launches}")
@@ -569,8 +768,26 @@ def serve_phase(torch, dev, profile: bool):
           f"{BACKEND_TOL} x {scale_l:.3e}")
     check(bool(agree[clear].all()), "top-1 disagrees on a clear row")
 
-    prof = (profile_decode(torch, raw_decode, engine, captured)
-            if profile else None)
+    prof = None
+    if profile:
+        # the same decode step with the attention kernels on and off, in
+        # turns: on, off, off, on
+        from repro_torch.models import build_model
+        plain_model = build_model(cfg, dev, attn_kernel=False)
+
+        @torch.no_grad()
+        def plain_decode(params, pool, tokens, cache, pos, sids):
+            mode = LoRAMode("batched", sids, scale, engine.lora_backend)
+            logits, cache = plain_model.decode_step(params, tokens, cache,
+                                                    pos, pool, mode)
+            return torch.argmax(logits, -1).to(torch.int32), cache
+
+        routes = {True: raw_decode, False: plain_decode}
+        runs = [(on, profile_decode(torch, routes[on], engine, captured,
+                                    f"attn_kernel={on}"))
+                for on in (True, False, False, True)]
+        prof = {f"attn_kernel={on}": [r for o, r in runs if o == on]
+                for on in (True, False)}
     result = dict(summary=dataclasses.asdict(summary), launches=launches,
                   path_launches=path_launches, launches_per_step=per_step,
                   init_s=init_s,
@@ -589,15 +806,34 @@ def serve_phase(torch, dev, profile: bool):
 # ---------------------------------------------------------------------------
 
 
+def _kernel_modules():
+    from repro_torch.kernels import (decode_attention, flash_prefill,
+                                     paged_gather, sgmv)
+    return (sgmv, paged_gather, decode_attention, flash_prefill)
+
+
 def _counts():
-    from repro_torch.kernels import paged_gather, sgmv
-    return {**sgmv.launches, **paged_gather.launches}
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.launches)
+    return out
 
 
 def _reset_counts() -> None:
-    from repro_torch.kernels import paged_gather, sgmv
-    sgmv.reset_launches()
-    paged_gather.reset_launches()
+    for mod in _kernel_modules():
+        mod.reset_launches()
+
+
+def _check_attention_launches(where, launches, prefill_calls, decode_calls):
+    """Every layer of every prefill / decode step call launches its
+    attention kernel once."""
+    want = {"flash_prefill": N_LAYERS * prefill_calls,
+            "flash_decode": N_LAYERS * decode_calls}
+    got = {k: launches[k] for k in want}
+    check(got == want and min(want.values()) > 0,
+          f"{where}: attention launches {got}, want {want} ({N_LAYERS} per "
+          f"step call over {prefill_calls} prefill and {decode_calls} "
+          "decode step calls)")
 
 
 def _timed_steps(torch, engine, names):
@@ -631,8 +867,11 @@ def _release(torch) -> None:
 
 def paged_compare_phase(torch, dev, shared):
     """One burst trace served under the same deterministic timer by a
-    dense and a paged engine: equal token streams, and two page-gather
-    launches per paged decode step call."""
+    dense and a paged engine: equal token streams and summaries (but for
+    ``kv_stats``), two page-gather launches per paged decode step call,
+    and one attention kernel launch per layer of every step call."""
+    import dataclasses
+
     from repro_torch.launch.serve import summary_row
     from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
     from repro_torch.serving.workload import WorkloadConfig, generate_trace
@@ -644,7 +883,7 @@ def paged_compare_phase(torch, dev, shared):
                         duration=0.05, input_range=(8, 64),
                         output_range=(8, 32), vocab_size=cfg.vocab_size,
                         seed=1)
-    streams, out = {}, {}
+    streams, summaries, out = {}, {}, {}
     for backend in ("dense", "paged"):
         ecfg = EngineConfig(n_slots=N_SLOTS, top_k=1, policy="edgelora",
                             max_ctx=MAX_CTX, prompt_buckets=(32, 64),
@@ -680,7 +919,15 @@ def paged_compare_phase(torch, dev, shared):
                   f"{n_dec} paged decode step calls (want 2 per call)")
         else:
             check(gathers == 0, "the dense serve launched the page gather")
+        check(engine.attn_kernel, f"{backend}: attn_kernel did not resolve "
+              "to the kernels on CUDA")
+        _check_attention_launches(f"{backend} serve", launches,
+                                  len(steps["_prefill"]), n_dec)
         streams[backend] = {r.request_id: list(r.tokens) for r in trace}
+        # the summary apart from the KV backend's own accounting
+        fields = dataclasses.asdict(summary)
+        fields.pop("kv_stats")
+        summaries[backend] = json.dumps(fields, sort_keys=True, default=str)
         row = summary_row("edgelora", cfg.lora.n_adapters, summary)
         out[backend] = dict(
             requests=len(trace), serve_s=serve_s, launches=launches,
@@ -707,6 +954,8 @@ def paged_compare_phase(torch, dev, shared):
         "requests equal")
     check(streams["dense"] == streams["paged"],
           "dense and paged token streams differ under one timer")
+    check(summaries["dense"] == summaries["paged"],
+          "dense and paged summaries differ under one timer")
     out["streams_equal"] = same
     return out
 
@@ -770,6 +1019,8 @@ def prefix_chunk_phase(torch, dev, shared):
     for name, n in launches.items():
         check(n > 0, f"prefix/chunk serve: {name} never launched")
     prefill_ms = steps["_prefill"] + steps["_prefill_suffix"]
+    _check_attention_launches("prefix/chunk serve", launches,
+                              len(prefill_ms), len(steps["_decode_paged"]))
     row = summary_row("edgelora", cfg.lora.n_adapters, summary)
     out = dict(requests=len(trace), serve_s=serve_s, launches=launches,
                prompt_lens=[r.prompt_len for r in trace],
@@ -793,9 +1044,10 @@ def prefix_chunk_phase(torch, dev, shared):
     return out
 
 
-def profile_decode(torch, decode, engine, captured, steps: int = 5):
-    """Device time by kernel over a few decode steps on the captured
-    inputs (torch.profiler)."""
+def profile_decode(torch, decode, engine, captured, label: str,
+                   steps: int = 5):
+    """Device time by kernel over a few decode steps of ``decode`` on the
+    captured inputs (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
@@ -828,8 +1080,9 @@ def profile_decode(torch, decode, engine, captured, steps: int = 5):
         rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    log(f"profile: {steps} decode steps, wall {1e3 * wall / steps:.2f} "
-        f"ms/step, device busy {busy_ms / steps:.2f} ms/step "
+    log(f"profile ({label}): {steps} decode steps, wall "
+        f"{1e3 * wall / steps:.2f} ms/step, device busy "
+        f"{busy_ms / steps:.2f} ms/step "
         f"({100 * busy_ms / (1e3 * wall):.1f}% of wall), "
         f"{sum(r[2] for r in rows) // steps} device ops/step")
     for us, key, count in rows[:15]:
@@ -882,7 +1135,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     build_s = _build.build()
-    check(sorted(build_s) == ["paged_gather", "sgmv"],
+    check(sorted(build_s) == ["decode_attention", "flash_prefill",
+                              "paged_gather", "sgmv"],
           f"unexpected kernel sources {sorted(build_s)}")
     log(f"kernel build {time.perf_counter() - t0:.1f}s wall, one nvcc per "
         "source: " + ", ".join(f"{n}.cu {t:.1f}s"
@@ -894,11 +1148,13 @@ def main(argv=None) -> int:
     for r in rows:
         log("  " + json.dumps(r))
     gather_rows = gather_phase(torch, dev)
-    attention = attention_yardsticks(torch, dev)
+    attention = attention_phase(torch, dev)
     log(f"kernel phase {time.perf_counter() - t0:.1f}s")
 
     # ---- 4. serve -------------------------------------------------------
     serve, shared = serve_phase(torch, dev, args.profile)
+    _release(torch)
+    step_check = step_check_phase(torch, dev, shared)
     _release(torch)
 
     # ---- 5-6. paged KV, prefix cache, chunked prefill -------------------
@@ -946,12 +1202,37 @@ def main(argv=None) -> int:
         bound_by=g["bound_by"], library_ms=g["library_ms"],
         shape=f"ng={g['ng']} n_pages={g['n_pages']} bs={g['bs']} "
               f"F={g['F']} B={g['B']} MB={g['MB']} bf16"))
+    # the attention kernels: launches over every serve, times at the main
+    # path's bf16 shape (decode step; full prefill group)
+    serves = {"dense": serve["launches"],
+              "paged_compare_dense": paged["dense"]["launches"],
+              "paged_compare_paged": paged["paged"]["launches"],
+              "prefix_chunk": prefix["launches"]}
+    for name, src, replaces, pick_row in (
+            ("flash_decode", "decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:85",
+             lambda r: r["kv_dtype"] == "bfloat16"),
+            ("flash_prefill", "flash_prefill.cu",
+             "src/repro/kernels/flash_prefill.py:82",
+             lambda r: r["case"] == "prefill")):
+        mine = [r for r in attention if r["kernel"] == name]
+        r = next(x for x in mine if pick_row(x))
+        by_serve = {k: v[name] for k, v in serves.items()}
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
+            launches=sum(by_serve.values()), launches_by_serve=by_serve,
+            max_abs_err=max(x["max_abs_err"] for x in mine),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=r["shape"]))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, build_s=build_s,
              kernels=kernels, kernel_rows=rows, gather_rows=gather_rows,
-             attention_yardsticks=attention, serve=serve,
+             attention_rows=attention, step_check=step_check,
+             serve=serve,
              paged_compare=paged, prefix_chunk=prefix,
              seconds=time.perf_counter() - t_start), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f}s")

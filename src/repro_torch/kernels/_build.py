@@ -2,12 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 (one nvcc per source, started together) into
-``_build/lib<name>_<hash>.so``, where the hash covers the source and
-the compiler flags: a library is built at first use and rebuilt whenever
-its source changes. Nothing is built or loaded at import time (the CPU
-tests import every module; this machine-independent module only touches
-nvcc when a kernel is first launched on a CUDA tensor, or when
-``build()`` is called).
+``_build/lib<name>_<hash>.so``, where the hash covers the source, the
+shared headers (``csrc/*.cuh``) and the compiler flags: a library is
+built at first use and rebuilt whenever its source changes. Nothing is
+built or loaded at import time (the CPU tests import every module; this
+machine-independent module only touches nvcc when a kernel is first
+launched on a CUDA tensor, or when ``build()`` is called).
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
         -Xcompiler -fPIC -o _build/lib<name>_<hash>.so csrc/<name>.cu
@@ -53,7 +53,9 @@ def sources() -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # every shared header counts: a source may include any of them
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

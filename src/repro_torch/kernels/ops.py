@@ -10,13 +10,20 @@ never waits on the device.
 
 ``paged_gather`` is the paged KV arena's page fetch: any-rank arena
 leaves through the ``paged_gather_pages`` kernel.
+
+``decode_attention`` and ``flash_prefill`` are the two attention kernels'
+entry points (``flash_decode``, ``flash_prefill``); the model reaches them
+when its ``attn_kernel`` route is on.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import flash_decode
+from repro_torch.kernels.flash_prefill import flash_prefill as _flash_prefill
 from repro_torch.kernels.paged_gather import paged_gather_pages
 from repro_torch.kernels.sgmv import DEFAULT_BLK_T, sgmv_expand, sgmv_shrink
 
@@ -121,3 +128,29 @@ def paged_gather(arena: torch.Tensor, tables: torch.Tensor, *,
     flat = arena.reshape(ng, n_pages, bs, -1)
     out = paged_gather_pages(flat, tables)
     return out.reshape(ng, b, mb * bs, *rest)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_pos: torch.Tensor, q_pos: Any, *,
+                     window: Optional[int] = None, chunked: bool = False,
+                     softcap: Optional[float] = None,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """Flash-decode over the ring cache (see ``decode_attention.py``);
+    ``q_pos`` a scalar or [B]. ``use_kernel=False`` is the oracle
+    ``ref.decode_attention_ref``."""
+    if not use_kernel:
+        return ref.decode_attention_ref(q, k, v, kv_pos, q_pos,
+                                        window=window, chunked=chunked,
+                                        softcap=softcap)
+    return flash_decode(q, k, v, kv_pos, q_pos, window=window,
+                        chunked=chunked, softcap=softcap)
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  qpos: Optional[torch.Tensor] = None,
+                  kpos: Optional[torch.Tensor] = None, causal: bool = True,
+                  window: Optional[int] = None, chunked: bool = False,
+                  softcap: Optional[float] = None) -> torch.Tensor:
+    """Tiled prefill attention (see ``flash_prefill.py``)."""
+    return _flash_prefill(q, k, v, qpos=qpos, kpos=kpos, causal=causal,
+                          window=window, chunked=chunked, softcap=softcap)

@@ -5,6 +5,8 @@ kernel against its plain version on the card.
 """
 from __future__ import annotations
 
+from typing import Any, Optional
+
 import torch
 
 
@@ -31,3 +33,35 @@ def sgmv_ref(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
     """Full grouped LoRA delta: scale · B[slot](A[slot] x)."""
     return scale * sgmv_expand_ref(
         sgmv_shrink_ref(x, a_stack, token_slots), b_stack, token_slots)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_pos: torch.Tensor, q_pos: Any, *,
+                         window: Optional[int] = None,
+                         chunked: bool = False,
+                         softcap: Optional[float] = None) -> torch.Tensor:
+    """Single-token attention over a ring cache.
+
+    q: [B, H, hd]; k, v: [B, C, KH, hd]; kv_pos: [B, C] (-1 = empty);
+    q_pos: scalar or [B] (the reference takes a scalar; the port's engine
+    decodes each row at its own position). Returns [B, H, hd] (f32
+    arithmetic, q dtype out)."""
+    b, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, kh, g, hd)
+    s = torch.einsum("bkgd,bckd->bkgc", qg.float(), k.float()) * hd ** -0.5
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    qp = torch.as_tensor(q_pos, dtype=torch.int32,
+                         device=q.device).expand(b)[:, None]
+    valid = (kv_pos >= 0) & (kv_pos <= qp)
+    if window is not None:
+        if chunked:  # torch's // on integer tensors floors, as JAX's does
+            valid &= (qp // window) == (kv_pos // window)
+        else:
+            valid &= (qp - kv_pos) < window
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgc,bckd->bkgd", p, v.float())
+    return out.reshape(b, h, hd).to(q.dtype)

@@ -128,8 +128,8 @@ def main(argv=None) -> int:
     engine = EdgeLoRAEngine(cfg, ecfg, device=args.device)
     summary = engine.serve(trace)
     print(f"# lora_backend={engine.lora_backend} "
-          f"kv_backend={engine.kv_backend} device={engine.device}",
-          file=sys.stderr)
+          f"kv_backend={engine.kv_backend} device={engine.device} "
+          f"attn_kernel={engine.attn_kernel}", file=sys.stderr)
     if args.json:
         print(json.dumps(summary.__dict__, default=float, indent=2))
     else:

@@ -9,8 +9,14 @@ decode (``repro.models.attention``).
   arrays); every write is a pure function of the step's inputs, so
   repeating a step writes the same values.
 
-Attention kernels (``flash_decode``, ``flash_prefill``) come in a later
-slice; this module is plain PyTorch with no fused attention operator.
+Each attention function takes the route its caller chose
+(``use_kernel``, the model's ``attn_kernel``): ``blockwise_attention``
+the plain two-loop code above or the ``flash_prefill`` kernel,
+``decode_attention`` the plain einsum code or the ``flash_decode``
+kernel (through ``kernels/ops.py``; on CPU tensors each kernel wrapper
+runs its plain version). Both kernel routes keep the softmax
+probabilities in f32 where the plain code rounds them to V's dtype, so
+in bf16 the two routes differ by rounding.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import LoRAMode
+from repro_torch.kernels import ops
 from repro_torch.models.layers import linear, truncated_normal_init
 
 NEG_INF = -1e30
@@ -124,21 +131,26 @@ def _fit_block(n: int, requested: int) -> int:
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         qpos: torch.Tensor, kpos: torch.Tensor, *,
                         kind: str, cfg: ModelConfig, block_q: int = 512,
-                        block_kv: int = 1024) -> torch.Tensor:
-    """Flash-style attention in plain PyTorch.
+                        block_kv: int = 1024,
+                        use_kernel: bool = False) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch, or with ``use_kernel``
+    the ``flash_prefill`` kernel (which tiles on its own).
 
     q: [B, Sq, H, hd]; k, v: [B, Skv, KH, hd]; qpos: [Sq]; kpos: [Skv].
     Returns [B, Sq, H, hd]. Causal masking from positions.
     """
+    mfn = mask_fn(kind, cfg)  # raises for layer kinds not ported
+    softcap = cfg.attn.attn_logit_softcap
+    if use_kernel:  # global layers: causal, no window
+        return ops.flash_prefill(q, k, v, qpos=qpos, kpos=kpos, causal=True,
+                                 softcap=softcap)
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
     block_q = _fit_block(sq, block_q)
     block_kv = _fit_block(skv, block_kv)
     nq, nkv = sq // block_q, skv // block_kv
-    softcap = cfg.attn.attn_logit_softcap
     scale = hd ** -0.5
-    mfn = mask_fn(kind, cfg)
 
     qb = q.reshape(b, nq, block_q, kh, g, hd)
     kb = k.reshape(b, nkv, block_kv, kh, hd)
@@ -225,17 +237,22 @@ def cache_fill(cache: Dict, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, cache: Dict, qpos: torch.Tensor, *,
-                     kind: str, cfg: ModelConfig) -> torch.Tensor:
-    """Single-token attention over the ring cache.
+                     kind: str, cfg: ModelConfig,
+                     use_kernel: bool = False) -> torch.Tensor:
+    """Single-token attention over the ring cache, in plain PyTorch or
+    with ``use_kernel`` through the ``flash_decode`` kernel.
 
     q: [B, H, hd]; cache k/v: [B, C, KH, hd]; cache pos: [B, C];
     qpos: [B] per-slot positions. Returns [B, H, hd].
     """
+    mfn = mask_fn(kind, cfg)  # raises for layer kinds not ported
+    softcap = cfg.attn.attn_logit_softcap
+    if use_kernel:  # global layers: causal, no window
+        return ops.decode_attention(q, cache["k"], cache["v"], cache["pos"],
+                                    qpos, softcap=softcap)
     b, h, hd = q.shape
     kh = cache["k"].shape[-2]
     g = h // kh
-    softcap = cfg.attn.attn_logit_softcap
-    mfn = mask_fn(kind, cfg)
     qg = q.reshape(b, kh, g, hd)
     k_cache = cache["k"].to(q.dtype)
     v_cache = cache["v"].to(q.dtype)

@@ -9,7 +9,10 @@ own parameters); the serving engine calls ``prefill`` and
 ``decode_step`` (and, with the paged KV arena, the prefix cache or
 chunked prefill, ``prefill_suffix``, ``prefill_suffix_dense`` and
 ``decode_step_paged``) with a ``LoRAMode`` carrying per-request adapter
-slots.
+slots. ``attn_kernel`` (a field, set at construction) routes every
+step's attention through the ``flash_prefill`` / ``flash_decode``
+kernels instead of the plain PyTorch code; on CPU tensors the kernel
+wrappers run their plain versions.
 """
 from __future__ import annotations
 
@@ -79,12 +82,14 @@ def _shapes(tree: Any) -> Any:
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda", *,
+                 attn_kernel: bool = False):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
         self.device = resolve_device(device)
+        self.attn_kernel = attn_kernel
 
     # ------------------------------------------------------------------
     # params
@@ -190,7 +195,8 @@ class Model(nn.Module):
         positions = torch.arange(s, device=tokens.device)
         h, _, cache = transformer.forward_stack(
             params, x, self.cfg, positions, lora, lora_mode, opts,
-            cache=cache, seq_mask=seq_mask, lengths=lengths)
+            cache=cache, seq_mask=seq_mask, lengths=lengths,
+            attn_kernel=self.attn_kernel)
         if lengths is not None:
             last = h[torch.arange(b, device=h.device), lengths.long() - 1]
             cache = _invalidate_past(cache, lengths)
@@ -230,7 +236,8 @@ class Model(nn.Module):
             params, x, self.cfg, positions, lora, lora_mode, opts,
             cache=cache, prefix_kv=prefix_kv,
             prefix_positions=torch.arange(prefix_len, dtype=torch.int32,
-                                          device=tokens.device))
+                                          device=tokens.device),
+            attn_kernel=self.attn_kernel)
         last = h[torch.arange(b, device=h.device),
                  lengths.long() - prefix_len - 1]
         return self.logits(params, last), cache
@@ -271,7 +278,8 @@ class Model(nn.Module):
             params, x, self.cfg, positions, lora, lora_mode, opts,
             cache=cache, prefix_kv=walk(global_cache),
             prefix_positions=torch.arange(prefix_len, dtype=torch.int32,
-                                          device=tokens.device))
+                                          device=tokens.device),
+            attn_kernel=self.attn_kernel)
         last = h[torch.arange(b, device=h.device),
                  lengths.long() - prefix_len - 1]
         return self.logits(params, last), cache
@@ -285,7 +293,8 @@ class Model(nn.Module):
         updated in place."""
         x = self.embed(params, tokens)
         h, cache = transformer.decode_stack(params, x, cache, self.cfg, pos,
-                                            lora, lora_mode)
+                                            lora, lora_mode,
+                                            attn_kernel=self.attn_kernel)
         return self.logits(params, h), cache
 
     def decode_step_paged(self, params: Dict, tokens: torch.Tensor,
@@ -336,5 +345,6 @@ def _invalidate_past(cache: Dict, lengths: torch.Tensor) -> Dict:
     return cache
 
 
-def build_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
-    return Model(cfg, device)
+def build_model(cfg: ModelConfig, device: DeviceLike = "cuda", *,
+                attn_kernel: bool = False) -> Model:
+    return Model(cfg, device, attn_kernel=attn_kernel)

@@ -124,7 +124,8 @@ def _attn_block_full(slot_p: Dict, lora_p: Optional[Dict], x: torch.Tensor,
                      lora_mode: LoRAMode, opts: Dict,
                      cache_slot: Optional[Dict] = None,
                      prefix_kv: Optional[Dict] = None,
-                     prefix_positions: Optional[torch.Tensor] = None):
+                     prefix_positions: Optional[torch.Tensor] = None,
+                     attn_kernel: bool = False):
     h = rmsnorm(slot_p["ln1"], x, cfg.norm_eps)
     q, k, v = attn_lib.project_qkv(slot_p["attn"], h, cfg, positions,
                                    lora_p, lora_mode)
@@ -141,7 +142,8 @@ def _attn_block_full(slot_p: Dict, lora_p: Optional[Dict], x: torch.Tensor,
         kpos = torch.cat([prefix_positions.to(positions.dtype), positions])
     o = attn_lib.blockwise_attention(
         q, k_all, v_all, positions, kpos, kind=kind, cfg=cfg,
-        block_q=opts.get("block_q", 512), block_kv=opts.get("block_kv", 1024))
+        block_q=opts.get("block_q", 512), block_kv=opts.get("block_kv", 1024),
+        use_kernel=attn_kernel)
     o = o.reshape(*x.shape[:-1], cfg.q_size)
     return linear({"w": slot_p["attn"]["wo"]}, o, (lora_p or {}).get("o"),
                   lora_mode)
@@ -161,7 +163,8 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                   seq_mask: Optional[torch.Tensor] = None,
                   lengths: Optional[torch.Tensor] = None,
                   prefix_kv: Optional[Dict] = None,
-                  prefix_positions: Optional[torch.Tensor] = None):
+                  prefix_positions: Optional[torch.Tensor] = None,
+                  attn_kernel: bool = False):
     """x: [B, S, d] -> (hidden [B, S, d], aux losses[, filled cache]).
 
     With ``cache`` this is the **prefill** path: attention slots also
@@ -175,6 +178,9 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     ``cache`` with leaves [ng, B, P, ...] — per-layer K/V for positions
     ``prefix_positions`` [P]. Attention runs over prefix-then-fresh keys;
     only the fresh suffix is written to ``cache``.
+
+    ``attn_kernel`` routes every layer's attention through the
+    ``flash_prefill`` kernel instead of the plain blockwise loops.
     """
     del seq_mask, lengths  # attention-only stack: see docstring
     if prefix_kv is not None and cache is None:
@@ -195,7 +201,8 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
             h = h + _attn_block_full(sp, lp, h, cfg, kind, positions,
                                      lora_mode, opts, gc.get(f"slot{p}"),
                                      prefix_kv=gpre.get(f"slot{p}"),
-                                     prefix_positions=prefix_positions)
+                                     prefix_positions=prefix_positions,
+                                     attn_kernel=attn_kernel)
             h = h + _ffn_block_full(sp, lp, h, cfg, lora_mode)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"load_balance": zero, "router_z": zero}
@@ -219,15 +226,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def _attn_decode(sp: Dict, lp: Optional[Dict], h: torch.Tensor,
                  cache_p: Dict, cfg: ModelConfig, kind: str,
-                 pos: torch.Tensor, lora_mode: LoRAMode) -> torch.Tensor:
+                 pos: torch.Tensor, lora_mode: LoRAMode,
+                 attn_kernel: bool = False) -> torch.Tensor:
     """h: [B, d]; cache_p: one slot's KV cache (no group dim), updated in
-    place; pos: [B] per-slot positions."""
+    place before the attention reads it (both on the current stream);
+    pos: [B] per-slot positions."""
     b = h.shape[0]
     x = rmsnorm(sp["ln1"], h, cfg.norm_eps)[:, None, :]            # [B, 1, d]
     q, k, v = attn_lib.project_qkv(sp["attn"], x, cfg, pos[:, None], lp,
                                    lora_mode)
     attn_lib.cache_update(cache_p, k, v, pos)
-    o = attn_lib.decode_attention(q[:, 0], cache_p, pos, kind=kind, cfg=cfg)
+    o = attn_lib.decode_attention(q[:, 0], cache_p, pos, kind=kind, cfg=cfg,
+                                  use_kernel=attn_kernel)
     return linear({"w": sp["attn"]["wo"]}, o.reshape(b, 1, cfg.q_size),
                   (lp or {}).get("o"), lora_mode)[:, 0]
 
@@ -235,10 +245,11 @@ def _attn_decode(sp: Dict, lp: Optional[Dict], h: torch.Tensor,
 def decode_stack(params: Dict, x: torch.Tensor, cache: Dict,
                  cfg: ModelConfig, pos: torch.Tensor,
                  lora: Optional[Dict] = None,
-                 lora_mode: LoRAMode = LoRAMode()) -> Tuple[torch.Tensor,
-                                                            Dict]:
+                 lora_mode: LoRAMode = LoRAMode(),
+                 attn_kernel: bool = False) -> Tuple[torch.Tensor, Dict]:
     """One decode step. x: [B, d]; pos: scalar or [B] per-slot positions.
-    Returns (h, cache); the cache is updated in place."""
+    Returns (h, cache); the cache is updated in place. ``attn_kernel``
+    routes every layer's attention through the ``flash_decode`` kernel."""
     period = stack_period(cfg)
     pos = torch.as_tensor(pos, dtype=torch.int32,
                           device=x.device).expand(x.shape[0])
@@ -252,7 +263,7 @@ def decode_stack(params: Dict, x: torch.Tensor, cache: Dict,
             kind = slot_kind(cfg, p)
             sp, lp = gp[f"slot{p}"], gl.get(f"slot{p}")
             h = h + _attn_decode(sp, lp, h, gc[f"slot{p}"], cfg, kind, pos,
-                                 lora_mode)
+                                 lora_mode, attn_kernel)
             hn = rmsnorm(sp["ln2"], h, cfg.norm_eps)[:, None, :]
             y = mlp(sp["mlp"], hn, act=cfg.act, glu=cfg.glu, lora=lp,
                     lora_mode=lora_mode)

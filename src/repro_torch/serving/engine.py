@@ -75,8 +75,14 @@ class EngineConfig:
     see ``repro.serving.engine.EngineConfig`` for each knob.
     ``kv_gather_kernel=None`` routes the paged page fetch through the
     ``paged_gather_pages`` kernel when the engine runs on CUDA (the
-    reference: only on a real TPU); ``dlora_*`` and ``memory_budget``
-    belong to the policies not yet ported."""
+    reference: only on a real TPU). ``attn_kernel`` is the port's own
+    knob (the reference model never calls its attention kernels):
+    ``None`` runs every prefill and decode step's attention through the
+    ``flash_prefill`` / ``flash_decode`` kernels on CUDA and the plain
+    code on the CPU; ``True`` on the CPU routes through the kernel
+    wrappers, which run their plain versions; ``False`` runs plain
+    attention. ``dlora_*`` and ``memory_budget`` belong to the policies
+    not yet ported."""
 
     n_slots: int = 8
     top_k: int = 3
@@ -90,6 +96,7 @@ class EngineConfig:
     kv_block_size: int = 16
     kv_arena_blocks: Optional[int] = None
     kv_gather_kernel: Optional[bool] = None
+    attn_kernel: Optional[bool] = None
     prefix_cache: bool = False
     async_swap: bool = True
     prefetch_depth: int = 4
@@ -156,7 +163,12 @@ class EdgeLoRAEngine:
         self._buckets = tuple(sorted(
             {min(b, engine_cfg.max_ctx) for b in engine_cfg.prompt_buckets
              if b > 0} | {engine_cfg.max_ctx}))
-        self.model = build_model(cfg, self.device)
+        attn_kernel = engine_cfg.attn_kernel
+        if attn_kernel is None:  # only where the kernels run: CUDA
+            attn_kernel = self.device.type == "cuda"
+        self.attn_kernel = bool(attn_kernel)
+        self.model = build_model(cfg, self.device,
+                                 attn_kernel=self.attn_kernel)
         if params is None:
             self.params = self.model.init(self._generator(engine_cfg.seed))
         else:

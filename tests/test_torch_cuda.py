@@ -7,6 +7,8 @@ imports JAX, so run it there without the conftest::
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -91,3 +93,222 @@ def test_cuda_paged_gather_ops_route_restores_trailing_dims(dev):
     want = ops.paged_gather(arena, tables, use_kernel=False)
     torch.cuda.synchronize()
     assert got.shape == (2, 2, 12, 8, 128) and torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# attention kernels
+# ---------------------------------------------------------------------------
+
+# kernel vs plain: both in f32 in different orders (1e-5 of max|plain|); a
+# bf16 output may differ by one rounding step, 2^-8 of its value (1e-2)
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _attn_close(got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert torch.isfinite(got.float()).all()
+    assert err <= ATTN_TOL[dtype] * scale, (err, scale)
+
+
+# (b, h, kh, hd, c, window, chunked, softcap): the reference's sweep, then
+# a ragged ring (c not a multiple of the tile), head dims 128 and 256
+DECODE_SHAPES = [
+    (2, 8, 2, 64, 128, None, False, None),
+    (1, 4, 4, 32, 64, None, False, 50.0),
+    (3, 8, 2, 64, 256, 64, False, None),
+    (2, 4, 1, 64, 128, 32, True, None),
+    (3, 8, 2, 64, 100, None, False, None),
+    (2, 32, 8, 128, 257, None, False, None),
+    (2, 16, 2, 256, 37, 16, False, 30.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,hd,c,window,chunked,softcap", DECODE_SHAPES)
+def test_cuda_flash_decode_matches_plain(dev, dtype, b, h, kh, hd, c, window,
+                                         chunked, softcap):
+    """Per-row positions: a wrapped ring, part-filled rings, and (b > 1) a
+    fully empty last row (all -1: the mean of V over the ring)."""
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(b, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, c, kh, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, c, kh, hd, generator=gen, device=dev).to(dtype)
+    idx = torch.arange(c, device=dev, dtype=torch.int32)
+    kv_pos = torch.full((b, c), -1, dtype=torch.int32, device=dev)
+    kv_pos[0] = idx + c                       # position p at ring index p % c
+    kv_pos[1:b - 1] = torch.where(idx < c // 2, idx, -1)
+    q_pos = torch.tensor([2 * c - 1] + [c // 2 - 1] * max(b - 2, 0)
+                         + [3] * (b > 1), dtype=torch.int32, device=dev)
+    kw = dict(window=window, chunked=chunked, softcap=softcap)
+    da.reset_launches()
+    got = da.flash_decode(q, k, v, kv_pos, q_pos, **kw)
+    want = da.flash_decode_plain(q, k, v, kv_pos, q_pos, **kw)
+    torch.cuda.synchronize()
+    assert da.launches == {"flash_decode": 1}
+    assert got.shape == q.shape and got.dtype == dtype
+    _attn_close(got, want, dtype)
+    if b > 1:
+        empty = v[-1].float().mean(0).repeat_interleave(h // kh, 0)
+        _attn_close(got[-1], empty, dtype)                      # [h, hd]
+    # a scalar q_pos is every row's position
+    _attn_close(da.flash_decode(q, k, v, kv_pos, c - 3, **kw),
+                da.flash_decode_plain(q, k, v, kv_pos, c - 3, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_int8_matches_plain(dev, qdtype):
+    """int8 K/V with per-(token, head) scales, dequantised in the tile."""
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, h, kh, hd, c = 3, 8, 2, 128, 200
+    q = torch.randn(b, h, hd, generator=gen, device=dev).to(qdtype)
+    kq = torch.randint(-127, 128, (b, c, kh, hd), generator=gen, device=dev,
+                       dtype=torch.int8)
+    vq = torch.randint(-127, 128, (b, c, kh, hd), generator=gen, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand(b, c, kh, generator=gen, device=dev) / 127
+    vs = torch.rand(b, c, kh, generator=gen, device=dev) / 127
+    kv_pos = torch.arange(c, dtype=torch.int32, device=dev).expand(
+        b, c).contiguous()
+    kv_pos[2] = -1
+    q_pos = torch.tensor([c - 1, c // 3, 0], dtype=torch.int32, device=dev)
+    got = da.flash_decode(q, kq, vq, kv_pos, q_pos, k_scale=ks, v_scale=vs)
+    want = da.flash_decode_plain(q, kq, vq, kv_pos, q_pos, k_scale=ks,
+                                 v_scale=vs)
+    torch.cuda.synchronize()
+    _attn_close(got, want, qdtype)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_reads_in_place_cache_write(dev):
+    """``cache_update`` writes the ring in place on the current stream and
+    the kernel, launched on the same stream, reads the new entry."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, h, kh, hd, c = 4, 8, 2, 64, 64
+    cache = attn.init_kv_cache(b, c, kh, hd, torch.bfloat16, device=dev)
+    pos = torch.tensor([0, 5, 63, 64], dtype=torch.int32, device=dev)
+    for step in range(3):
+        k_new = torch.randn(b, 1, kh, hd, generator=gen, device=dev)
+        v_new = 100 * torch.randn(b, 1, kh, hd, generator=gen, device=dev)
+        attn.cache_update(cache, k_new, v_new, pos + step)
+        q = torch.randn(b, h, hd, generator=gen, device=dev).bfloat16()
+        got = da.flash_decode(q, cache["k"], cache["v"], cache["pos"],
+                              pos + step)
+        want = da.flash_decode_plain(q.cpu(), cache["k"].cpu(),
+                                     cache["v"].cpu(), cache["pos"].cpu(),
+                                     (pos + step).cpu())
+        torch.cuda.synchronize()
+        _attn_close(got.cpu(), want, torch.bfloat16)
+
+
+# (b, sq, skv, h, kh, hd, offset, window, chunked, softcap): the reference's
+# four masks, GQA g = 4, ragged Sq and Skv, head dim 256, and suffix shapes
+# (queries at offset.. over offset + sq keys)
+PREFILL_SHAPES = [
+    (2, 64, 64, 4, 2, 32, 0, None, False, None),
+    (2, 64, 64, 4, 2, 32, 0, 16, False, None),
+    (2, 64, 64, 4, 2, 32, 0, 16, True, None),
+    (2, 64, 64, 4, 2, 32, 0, None, False, 30.0),
+    (1, 37, 37, 8, 2, 64, 0, None, False, None),
+    (2, 45, 45, 32, 8, 128, 0, None, False, None),
+    (1, 19, 19, 4, 1, 256, 0, 8, False, None),
+    (2, 32, 96, 32, 8, 128, 64, None, False, None),
+    (1, 7, 57, 4, 4, 64, 50, 16, True, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kh,hd,offset,window,chunked,softcap",
+                         PREFILL_SHAPES)
+def test_cuda_flash_prefill_matches_plain(dev, dtype, b, sq, skv, h, kh, hd,
+                                          offset, window, chunked, softcap):
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn(b, sq, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, skv, kh, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, skv, kh, hd, generator=gen, device=dev).to(dtype)
+    kw = dict(window=window, chunked=chunked, softcap=softcap)
+    if offset:
+        kw.update(qpos=torch.arange(offset, offset + sq, dtype=torch.int32,
+                                    device=dev),
+                  kpos=torch.arange(skv, dtype=torch.int32, device=dev))
+    fp.reset_launches()
+    got = fp.flash_prefill(q, k, v, **kw)
+    want = fp.flash_prefill_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fp.launches == {"flash_prefill": 1}
+    assert got.shape == q.shape and got.dtype == dtype
+    _attn_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_prefill_rows_without_keys(dev, dtype):
+    """Rows that see no key (positions before every key, an empty entry)
+    are the mean of V over all Skv entries, in a q tile where other rows
+    do see keys, so masked KV tiles are not skipped for them; a non-causal
+    call sees every non-empty key."""
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, sq, skv, h, kh, hd = 2, 40, 70, 4, 2, 128
+    q = torch.randn(b, sq, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, skv, kh, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, skv, kh, hd, generator=gen, device=dev).to(dtype)
+    qpos = torch.arange(sq, dtype=torch.int32, device=dev) * 3 - 20
+    kpos = torch.arange(skv, dtype=torch.int32, device=dev) + 10
+    kpos[5] = -1
+    for causal in (True, False):
+        got = fp.flash_prefill(q, k, v, qpos=qpos, kpos=kpos, causal=causal)
+        want = fp.flash_prefill_plain(q, k, v, qpos=qpos, kpos=kpos,
+                                      causal=causal)
+        torch.cuda.synchronize()
+        _attn_close(got, want, dtype)
+    got = fp.flash_prefill(q, k, v, qpos=qpos, kpos=kpos)
+    mean = v.float().mean(1).repeat_interleave(h // kh, 1)     # [b, h, hd]
+    _attn_close(got[:, 0], mean, dtype)                        # qpos -20
+
+
+@pytest.mark.cuda
+def test_cuda_model_kernel_route_matches_plain_route(dev):
+    """The reduced Llama in f32 on the card: prefill and two decode steps
+    with the attention kernels against the plain attention code, within
+    1e-4 of max|logit|; every layer launches each kernel once per step."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(reduced_config(get_config("llama3-8b")),
+                              dtype="float32")
+    plain = build_model(cfg, dev)
+    params = plain.init(torch.Generator(device=dev).manual_seed(0))
+    kern = build_model(cfg, dev, attn_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 16), generator=gen,
+                           device=dev, dtype=torch.int32)
+    lengths = torch.tensor([16, 9, 5], dtype=torch.int32, device=dev)
+    logits = {}
+    da.reset_launches()
+    fp.reset_launches()
+    for name, m in (("plain", plain), ("kernel", kern)):
+        lp, cache = m.prefill(params, {"tokens": tokens},
+                              m.init_cache(3, 32), lengths=lengths)
+        out = [lp]
+        nxt, pos = torch.argmax(lp, -1).int(), lengths.clone()
+        for _ in range(2):
+            ld, cache = m.decode_step(params, nxt, cache, pos)
+            out.append(ld)
+            nxt, pos = torch.argmax(ld, -1).int(), pos + 1
+        logits[name] = out
+    torch.cuda.synchronize()
+    assert fp.launches == {"flash_prefill": cfg.n_layers}
+    assert da.launches == {"flash_decode": 2 * cfg.n_layers}
+    for got, want in zip(logits["kernel"], logits["plain"]):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
