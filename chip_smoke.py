@@ -32,11 +32,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``flash_decode`` at the decode step's layer (q [8, 32, 128], a
    256-entry ring [8, 256, 8, 128], per-row positions with one idle
    all -1 row) in bf16, f32 and int8 K/V, and ``flash_prefill`` at a
-   prefill group's layer ([8, 64, 32, 128] causal) and a suffix step's
-   (32 queries over 64 + 32 keys), bf16, against their plain versions,
-   each timed beside its plain version, the library call
+   prefill group's layer ([8, 64, 32, 128] causal; bf16, the tensor-core
+   template, and f32, the CUDA-core one) and a suffix step's (32 queries
+   over 64 + 32 keys, bf16), against their plain versions, each timed
+   beside its plain version, the library call
    (``scaled_dot_product_attention`` with GQA, a yardstick only) and its
-   bound.
+   bound, with the wrapper's host µs per call while the card is busy.
 4. Serve: ``EdgeLoRAEngine`` on the full Llama-3.1-8B config (bf16, 32
    layers, random weights from a seeded ``torch.Generator`` on the card,
    rescaled to fan-in scale),
@@ -195,6 +196,22 @@ def host_ms(torch, fn, iters: int = 20, warm: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def enqueue_us(torch, fn, iters: int = 50, warm: int = 3) -> float:
+    """Mean host µs per call of ``fn`` while the card is kept busy (a
+    device-side sleep of ~50 ms queued first), so no call waits on the
+    device: the wrapper's own cost (checks, allocations, launches)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(25 * SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / iters
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -397,12 +414,13 @@ def attention_phase(torch, dev):
     [8, 256, 8, 128]) with per-row positions (rows at depths 17..256, the
     deepest wrapped, and one idle row whose ring is empty), in bf16, f32,
     and int8 K/V with f32 scales (bf16 q). prefill: a full prefill
-    group's layer ([8, 64, 32, 128] causal) and a suffix step's (32
-    queries at positions 64..95 over 64 cached + 32 fresh keys), bf16.
-    Bounds count what these inputs need: K and V of visible entries
-    (only V of a row with no visible key, whose output is the mean of
-    V), positions, q and out; 4·hd operations per visible (query head,
-    key) pair."""
+    group's layer ([8, 64, 32, 128] causal) in bf16 and f32, and a suffix
+    step's (32 queries at positions 64..95 over 64 cached + 32 fresh
+    keys) in bf16. Each row also carries the wrapper's host µs per call
+    (``enqueue_us``). Bounds count what these inputs need: K and V of
+    visible entries (only V of a row with no visible key, whose output
+    is the mean of V), positions, q and out; 4·hd operations per visible
+    (query head, key) pair."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
@@ -483,6 +501,8 @@ def attention_phase(torch, dev):
                   f"[B] q_pos, one idle row", visible_entries=n_vis,
             max_abs_err=e, ms=cuda_ms(torch, lambda: da.flash_decode(
                 q, k, v, kv_pos, q_pos, **scales), flush),
+            host_us=enqueue_us(torch, lambda: da.flash_decode(
+                q, k, v, kv_pos, q_pos, **scales)),
             plain_ms=cuda_ms(torch, lambda: da.flash_decode_plain(
                 q, k, v, kv_pos, q_pos, **scales), flush),
             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -491,8 +511,10 @@ def attention_phase(torch, dev):
         log("flash_decode " + json.dumps(rows[-1]))
 
     # ---- flash_prefill --------------------------------------------------
-    for label, sq, p0 in (("prefill", 64, 0), ("suffix", 32, 64)):
-        dtype = torch.bfloat16
+    for label, sq, p0, dname in (("prefill", 64, 0, "bfloat16"),
+                                 ("suffix", 32, 64, "bfloat16"),
+                                 ("prefill", 64, 0, "float32")):
+        dtype = getattr(torch, dname)
         skv = p0 + sq
         q = randn(b, sq, h, hd, dtype=dtype)
         k, v = randn(b, skv, kh, hd, dtype=dtype), randn(b, skv, kh, hd,
@@ -502,12 +524,12 @@ def attention_phase(torch, dev):
         kw = dict(qpos=qpos, kpos=kpos) if p0 else {}
         got = fp.flash_prefill(q, k, v, **kw)
         want = fp.flash_prefill_plain(q, k, v, **kw)
-        e = err(got, want, "bfloat16")
+        e = err(got, want, dname)
         vis = (kpos[None, :] <= qpos[:, None])
         pairs = int(vis.sum())
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + (
+        nbytes = dtype.itemsize * (2 * q.numel() + k.numel() + v.numel()) + (
             4 * (sq + skv) if p0 else 0)
-        bnd, by = bound_ms(nbytes, 4.0 * b * h * hd * pairs, "bfloat16")
+        bnd, by = bound_ms(nbytes, 4.0 * b * h * hd * pairs, dname)
         ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         if p0:
             def lib():
@@ -518,12 +540,14 @@ def attention_phase(torch, dev):
                 return F.scaled_dot_product_attention(
                     ql, kl, vl, is_causal=True, enable_gqa=True)
         rows.append(dict(
-            kernel="flash_prefill", dtype="bfloat16", case=label,
-            shape=f"q [{b},{sq},{h},{hd}] k,v [{b},{skv},{kh},{hd}] bf16 "
+            kernel="flash_prefill", dtype=dname, case=label,
+            shape=f"q [{b},{sq},{h},{hd}] k,v [{b},{skv},{kh},{hd}] {dname} "
                   f"causal, q positions {p0}..{skv - 1}",
             visible_pairs=pairs, max_abs_err=e,
             ms=cuda_ms(torch, lambda: fp.flash_prefill(q, k, v, **kw),
                        flush),
+            host_us=enqueue_us(torch, lambda: fp.flash_prefill(q, k, v,
+                                                               **kw)),
             plain_ms=cuda_ms(torch, lambda: fp.flash_prefill_plain(
                 q, k, v, **kw), flush),
             library_ms=cuda_ms(torch, lib, flush),
@@ -1214,7 +1238,8 @@ def main(argv=None) -> int:
              lambda r: r["kv_dtype"] == "bfloat16"),
             ("flash_prefill", "flash_prefill.cu",
              "src/repro/kernels/flash_prefill.py:82",
-             lambda r: r["case"] == "prefill")):
+             lambda r: r["case"] == "prefill"
+             and r["dtype"] == "bfloat16")):
         mine = [r for r in attention if r["kernel"] == name]
         r = next(x for x in mine if pick_row(x))
         by_serve = {k: v[name] for k, v in serves.items()}
@@ -1225,7 +1250,7 @@ def main(argv=None) -> int:
             max_abs_err=max(x["max_abs_err"] for x in mine),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            shape=r["shape"]))
+            host_us=r["host_us"], shape=r["shape"]))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

@@ -1,6 +1,8 @@
 // Pieces shared by the two attention kernels (decode_attention.cu,
 // flash_prefill.cu): element conversion, the position mask, warp
-// reductions and the 16-byte tile loader.
+// reductions, the f32 tile loader of the scalar prefill template, and
+// inline PTX for Hopper's asynchronous copies (cp.async), shared-memory
+// matrix loads (ldmatrix) and bf16 tensor-core products (mma.sync).
 //
 // The mask and the sentinel follow the TPU kernels exactly. A masked
 // score is the finite -1e30 (NEG_INF in src/repro/kernels/*.py), not -inf:
@@ -67,13 +69,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 // Copy rows [0, n) of a [n, HD] tile into shared memory as f32, row r from
 // src + r * row_stride, to dst + r * dst_stride. 16-byte vector loads,
 // neighbouring threads on neighbouring addresses; each element read once.
-// With scale (int8 K/V), row r is multiplied by scale[r * scale_stride] as
-// it lands: the dequantised tile exists only in shared memory.
 template <typename T, int HD>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src, int64_t row_stride,
-                                          int n, float* dst, int dst_stride,
-                                          const float* __restrict__ scale = nullptr,
-                                          int64_t scale_stride = 0) {
+                                          int n, float* dst, int dst_stride) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kVecPerRow = HD / kVec;
   static_assert(HD % kVec == 0, "head dim must fill whole 16-byte vectors");
@@ -82,11 +80,72 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, int64_t row
     const int j = (i % kVecPerRow) * kVec;
     const uint4 raw = *reinterpret_cast<const uint4*>(src + r * row_stride + j);
     const T* e = reinterpret_cast<const T*>(&raw);
-    const float sc = scale != nullptr ? scale[r * scale_stride] : 1.0f;
     float* d = dst + r * dst_stride + j;
 #pragma unroll
-    for (int u = 0; u < kVec; ++u) d[u] = to_f(e[u]) * sc;
+    for (int u = 0; u < kVec; ++u) d[u] = to_f(e[u]);
   }
+}
+
+// ---- inline PTX ---------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; src_bytes < 16 fills the rest
+// of the 16 bytes with zeros (0: a row past a ragged edge, src unread).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4-byte asynchronous copy (a scale of int8 K/V; strided, so not 16-byte)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8, and r[i] holds matrix i in mma fragment order
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// the same, each matrix transposed (V read as the B operand of P.V)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate (one warp)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 and packed, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Opt a kernel into more than 48 KiB of dynamic shared memory when it needs

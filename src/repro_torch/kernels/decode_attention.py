@@ -13,18 +13,22 @@ engine decodes each row at its own position). Masked scores are the
 finite ``-1e30`` of the TPU kernel, so a row without any key (an idle
 decode row) is the mean of V over its ring, as in the plain model code.
 
-What bounds it on an H100: bytes, one pass over K and V. The kernel
-reads each K/V element once for all ``g`` query heads of its group (one
-CTA per (row, kv head)) with 16-byte loads; see the source's note.
+What bounds it on an H100: bytes, one pass over K and V. The ring is cut
+into contiguous splits (``split_plan``), one CTA per (split, row, kv
+head), each issuing all of its split's K/V loads at once; the last
+split of each (row, kv head) to finish merges the splits' partial
+softmaxes in split order, so two calls give bit-equal outputs. See the
+source's note.
 
 The wrapper takes the plain PyTorch version (``flash_decode_plain``)
 only for a tensor on the CPU. For a CUDA tensor it launches the kernel or
-raises. ``launches`` counts kernel launches.
+raises. ``launches`` counts wrapper calls that launch the kernel (one,
+whether the call makes one CUDA launch or two).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -34,8 +38,18 @@ from repro_torch.kernels import _build, ref
 launches: Dict[str, int] = {"flash_decode": 0}
 
 HEAD_DIMS = (32, 64, 128, 256)
+# split plan: at least two CTAs on each of an H100's 132 SMs, splits of at
+# least 32 keys (fewer partials to merge) where C has them, and a split's
+# K/V and scores within 64 KiB of shared memory (three CTAs per SM fit)
+SPLIT_CTAS = 2 * 132
+MIN_SPLIT_KEYS = 32
+SPLIT_SMEM = 64 * 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _LIB: Optional[ctypes.CDLL] = None
+# per (device, stream): int32 counts of the splits that have arrived, one
+# per (row, kv head); zero between calls (the kernel's last split resets
+# its count), so they are zeroed once, when made or grown
+_ARRIVED: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -49,12 +63,31 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("decode_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_decode_launch.argtypes = [p, p, p, p, p, p, p, p,
-                                            i, i, i, i, i, i, i,
+        lib.flash_decode_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
+                                            i, i, i, i, i, i, i, i, i,
                                             f, i, i, f, p]
         lib.flash_decode_launch.restype = i
         _LIB = lib
     return _LIB
+
+
+def split_plan(b: int, kh: int, c: int, g: int, hd: int,
+               kv_itemsize: int) -> Tuple[int, int]:
+    """``(keys_per_split, n_splits)`` for the decode kernel: the fewest
+    splits that give ``SPLIT_CTAS`` CTAs over ``b * kh`` (row, kv head)
+    pairs, no split under ``MIN_SPLIT_KEYS`` keys unless C is, none over
+    what ``SPLIT_SMEM`` holds. Contiguous splits covering C exactly, none
+    empty; the last one ragged. At the main path's shape (B 8, KH 8,
+    C 256, g 4, hd 128, bf16): 5 splits of 52 keys, 320 CTAs."""
+    # shared memory per key: K (padded 16 bytes) and V rows, a score per
+    # query row, its position, and the int8 scales; per CTA: q in f32
+    per_key = 2 * hd * kv_itemsize + 16 + 4 * g + 4 + (
+        8 if kv_itemsize == 1 else 0)
+    max_keys = max(1, (SPLIT_SMEM - 4 * g * (hd + 2)) // per_key)
+    want = -(-SPLIT_CTAS // (b * kh))
+    keys = max(-(-c // want), min(MIN_SPLIT_KEYS, c))
+    keys = min(keys, max_keys)
+    return keys, -(-c // keys)
 
 
 def check_mask_args(name: str, window: Optional[int],
@@ -153,15 +186,31 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qp = torch.as_tensor(q_pos, dtype=torch.int32, device=q.device)
     qp = qp.expand(b).contiguous()
     c, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    keys, n_splits = split_plan(b, kh, c, g, hd, k.element_size())
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part_acc = part_ml = arrived = None
+    if n_splits > 1:    # each split's (acc, m, l), merged by the last split
+        part_acc = torch.empty(b * kh * n_splits * g * hd,
+                               dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(b * kh * n_splits * g * 2,
+                              dtype=torch.float32, device=q.device)
+        key = (q.device.index, stream)
+        arrived = _ARRIVED.get(key)
+        if arrived is None or arrived.numel() < b * kh:
+            arrived = _ARRIVED[key] = torch.zeros(
+                b * kh, dtype=torch.int32, device=q.device)
     err = _lib().flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None, kv_pos.data_ptr(),
-        qp.data_ptr(), out.data_ptr(), b, c, kh, h // kh, hd,
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], hd ** -0.5,
-        window or 0, int(chunked), softcap or 0.0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        qp.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr() if n_splits > 1 else None,
+        part_ml.data_ptr() if n_splits > 1 else None,
+        arrived.data_ptr() if n_splits > 1 else None, b, c, kh, g, hd,
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], keys, n_splits,
+        hd ** -0.5, window or 0, int(chunked), softcap or 0.0, stream)
     if err:
         raise RuntimeError(f"flash_decode: kernel launch failed with CUDA "
                            f"error {err}")

@@ -14,8 +14,11 @@ the window or chunk). Masked scores are the finite ``-1e30`` of the TPU
 kernel.
 
 What bounds it on an H100 at the main path's prefill shapes: bytes (see
-the source's note); the first kernel runs its products on CUDA cores in
-f32.
+the source's note). bf16 runs both products on the tensor cores
+(``mma.sync``, f32 accumulators, p rounded to bf16 for P·V), one CTA per
+64 (position, head) rows of a kv group so the group's heads share each
+K/V tile; f32 runs them on CUDA cores, since the tensor cores have no
+f32 path that meets f32's tolerance.
 
 The wrapper takes the plain PyTorch version (``flash_prefill_plain``)
 only for a tensor on the CPU. For a CUDA tensor it launches the kernel or

@@ -218,6 +218,119 @@ def test_chunk_index_floors_positions():
         [[1.5] * 32, [1.0] * 32]))
 
 
+@pytest.mark.parametrize("b,kh,c,g,hd,itemsize", [
+    (8, 8, 256, 4, 128, 2),       # the main path's decode step
+    (2, 2, 128, 4, 64, 4), (3, 2, 200, 4, 128, 1), (1, 1, 37, 8, 256, 4),
+    (2, 8, 257, 4, 128, 2), (1, 1, 10, 4, 32, 2), (8, 8, 8192, 4, 128, 2),
+    (1, 4, 4096, 8, 256, 4), (64, 8, 256, 4, 128, 2)])
+def test_decode_split_plan_covers_the_ring(b, kh, c, g, hd, itemsize):
+    """The decode kernel's split plan: contiguous splits that cover C
+    exactly with none empty, at least two CTAs per SM of an H100 wherever
+    C has enough keys, and a split's shared memory within the budget."""
+    keys, n = tdec.split_plan(b, kh, c, g, hd, itemsize)
+    assert keys >= 1 and (n - 1) * keys < c <= n * keys
+    per_key = 2 * hd * itemsize + 16 + 4 * g + 4 + 8 * (itemsize == 1)
+    assert 4 * g * (hd + 2) + keys * per_key <= tdec.SPLIT_SMEM
+    if c >= tdec.MIN_SPLIT_KEYS * -(-tdec.SPLIT_CTAS // (b * kh)):
+        assert b * kh * n >= tdec.SPLIT_CTAS
+    if (b, kh, c) == (8, 8, 256):
+        assert (keys, n) == (52, 5) and b * kh * n >= 2 * 132
+
+
+def _split_decode_np(q, k, v, kv_pos, q_pos, keys, window=None,
+                     chunked=False, softcap=None):
+    """The decode kernel's algorithm in numpy: the ring cut into splits of
+    ``keys`` entries; each split's (m, l, acc) with the finite -1e30
+    sentinel, an invisible split skipped (m = -1e30, l = 0) only when its
+    row has a visible key elsewhere; the partials merged in split order.
+    Returns the output and the number of splits skipped."""
+    b, h, hd = q.shape
+    c, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    valid = (kv_pos >= 0) & (kv_pos <= q_pos)
+    if window is not None:
+        valid &= ((q_pos // window) == (kv_pos // window) if chunked
+                  else (q_pos - kv_pos) < window)
+    out = np.empty((b, h, hd), np.float32)
+    skipped = 0
+    for bi in range(b):
+        for kj in range(kh):
+            qg = q[bi, kj * g:(kj + 1) * g]
+            parts = []
+            for c0 in range(0, c, keys):
+                sl = slice(c0, min(c, c0 + keys))
+                if not valid[bi, sl].any() and valid[bi].any():
+                    parts.append((np.full(g, -1e30, np.float32),
+                                  np.zeros(g, np.float32), None))
+                    skipped += 1
+                    continue
+                s = (qg @ k[bi, sl, kj].T) * np.float32(hd ** -0.5)
+                if softcap is not None:
+                    s = np.tanh(s / softcap) * softcap
+                s = np.where(valid[bi, sl], s, np.float32(-1e30))
+                m = s.max(1)
+                p = np.exp(s - m[:, None])
+                parts.append((m, p.sum(1), p @ v[bi, sl, kj]))
+            m = np.full(g, -1e30, np.float32)
+            for ms, _, _ in parts:
+                m = np.maximum(m, ms)
+            l = np.zeros(g, np.float32)
+            acc = np.zeros((g, hd), np.float32)
+            for ms, ls, accs in parts:
+                if accs is None:
+                    continue
+                w = np.exp(ms - m)
+                l += w * ls
+                acc += w[:, None] * accs
+            out[bi, kj * g:(kj + 1) * g] = acc / np.maximum(l, 1e-30)[:, None]
+    return out, skipped
+
+
+@pytest.mark.parametrize("keys,c,window,chunked,softcap", [
+    (None, 256, None, False, None),     # split_plan's own split
+    (7, 48, None, False, None),         # many splits, a ragged last one
+    (5, 23, 8, False, 30.0),            # sliding window, softcap
+    (16, 40, 16, True, None),           # chunked window
+    (48, 48, None, False, None),        # one split: no merge
+])
+def test_decode_split_combine_matches_reference(keys, c, window, chunked,
+                                                softcap):
+    """The split-and-merge rule the decode kernel implements, against the
+    JAX reference's decode oracle on seeded numpy inputs: a row that sees
+    only the last split, a row that sees no key anywhere (the mean of V
+    over every split), a row with a fully masked first split; f32 within
+    1e-5."""
+    b, h, kh, hd = 4, 8, 2, 32
+    rng = np.random.default_rng(17)
+    q = rng.normal(size=(b, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, c, kh, hd)).astype(np.float32)
+    v = rng.normal(size=(b, c, kh, hd)).astype(np.float32)
+    if keys is None:
+        keys, _ = tdec.split_plan(8, 8, c, h // kh, hd, 4)
+    q_pos = c + 10
+    kv_pos = np.full((b, c), -1, np.int32)
+    kv_pos[0] = np.arange(c)                          # all visible
+    kv_pos[1, -3:] = [c + 8, c + 9, c + 10]           # only in the last split
+    kv_pos[2] = c + 11 + np.arange(c)                 # none: future positions
+    kv_pos[3, keys:] = np.arange(keys, c)             # first split empty
+    got, skipped = _split_decode_np(q, k, v, kv_pos, np.int32(q_pos), keys,
+                                    window, chunked, softcap)
+    want = jref.decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kv_pos),
+        jnp.int32(q_pos), window=window, chunked=chunked, softcap=softcap)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+    mean = v[2].mean(0).repeat(h // kh, 0)            # [h, hd]
+    np.testing.assert_allclose(got[2], mean, rtol=1e-5, atol=1e-5)
+    if c > keys:
+        assert skipped > 0     # invisible splits of rows with keys skip
+    # the port's plain version agrees (the kernel is held to it on the card)
+    tgot = tdec.flash_decode_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(kv_pos), q_pos, window=window, chunked=chunked,
+        softcap=softcap)
+    np.testing.assert_allclose(tgot.numpy(), got, rtol=1e-5, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # flash_prefill
 # ---------------------------------------------------------------------------

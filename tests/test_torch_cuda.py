@@ -183,6 +183,70 @@ def test_cuda_flash_decode_int8_matches_plain(dev, qdtype):
     _attn_close(got, want, qdtype)
 
 
+_KV_TYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+             (torch.float32, torch.int8), (torch.bfloat16, torch.int8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype,kvdtype", _KV_TYPES)
+@pytest.mark.parametrize("c", [20, 300])
+def test_cuda_flash_decode_splits_match_plain(dev, qdtype, kvdtype, c):
+    """The ring split across CTAs (c 20: smaller than one split; c 300: ten
+    splits of 32, the last ragged): a row whose only keys lie in the last
+    split, a row with no key in any split (the mean of V over all of
+    them), a row whose first split is empty, a full row."""
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, h, kh, hd = 4, 8, 2, 64
+    itemsize = torch.empty(0, dtype=kvdtype).element_size()
+    keys, n_splits = da.split_plan(b, kh, c, h // kh, hd, itemsize)
+    assert (n_splits == 1) if c == 20 else (n_splits > 1 and c % keys)
+    q = torch.randn(b, h, hd, generator=gen, device=dev).to(qdtype)
+    scales = {}
+    if kvdtype == torch.int8:
+        k, v = (torch.randint(-127, 128, (b, c, kh, hd), generator=gen,
+                              device=dev, dtype=torch.int8) for _ in "kv")
+        scales = {n: torch.rand(b, c, kh, generator=gen, device=dev) / 127
+                  for n in ("k_scale", "v_scale")}
+    else:
+        k, v = (torch.randn(b, c, kh, hd, generator=gen, device=dev).to(
+            kvdtype) for _ in "kv")
+    q_pos = c + 10
+    kv_pos = torch.full((b, c), -1, dtype=torch.int32, device=dev)
+    kv_pos[0, -3:] = torch.tensor([c + 8, c + 9, c + 10], dtype=torch.int32)
+    kv_pos[1] = c + 11 + torch.arange(c, dtype=torch.int32)     # all future
+    kv_pos[2, keys:] = torch.arange(keys, c, dtype=torch.int32)
+    kv_pos[3] = torch.arange(c, dtype=torch.int32)
+    got = da.flash_decode(q, k, v, kv_pos, q_pos, **scales)
+    want = da.flash_decode_plain(q, k, v, kv_pos, q_pos, **scales)
+    torch.cuda.synchronize()
+    _attn_close(got, want, qdtype)
+    vf = v.float() * (scales["v_scale"][..., None] if scales else 1.0)
+    _attn_close(got[1], vf[1].mean(0).repeat_interleave(h // kh, 0), qdtype)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_is_deterministic(dev):
+    """The splits merge in a fixed order, without atomics: two calls at the
+    main path's shape give bit-equal outputs."""
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, h, kh, hd, c = 8, 32, 8, 128, 256
+    assert da.split_plan(b, kh, c, h // kh, hd, 2)[1] > 1
+    q = torch.randn(b, h, hd, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, c, kh, hd, generator=gen, device=dev).bfloat16()
+            for _ in "kv")
+    kv_pos = torch.arange(c, dtype=torch.int32, device=dev).expand(
+        b, c).contiguous()
+    q_pos = torch.arange(b, dtype=torch.int32, device=dev) * 37
+    first = da.flash_decode(q, k, v, kv_pos, q_pos)
+    second = da.flash_decode(q, k, v, kv_pos, q_pos)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _attn_close(first, da.flash_decode_plain(q, k, v, kv_pos, q_pos),
+                torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_decode_reads_in_place_cache_write(dev):
     """``cache_update`` writes the ring in place on the current stream and
@@ -312,3 +376,51 @@ def test_cuda_model_kernel_route_matches_plain_route(dev):
     for got, want in zip(logits["kernel"], logits["plain"]):
         err = (got - want).abs().max().item()
         assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8])
+def test_cuda_flash_prefill_packs_gqa_rows(dev, g):
+    """bf16 on the tensor cores: a CTA's 64 rows are (position, head)
+    pairs of one kv group, so its tile spans 64 / g positions (with g 3 a
+    position's heads straddle two CTAs); Sq 37 is no multiple of any tile,
+    and causal masking differs row by row within a tile."""
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator(device=dev).manual_seed(10)
+    b, sq, kh, hd = 2, 37, 2, 64
+    q = torch.randn(b, sq, g * kh, hd, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, sq, kh, hd, generator=gen, device=dev).bfloat16()
+            for _ in "kv")
+    got = fp.flash_prefill(q, k, v)
+    want = fp.flash_prefill_plain(q, k, v)
+    torch.cuda.synchronize()
+    _attn_close(got, want, torch.bfloat16)
+
+
+# (hd, sq, skv, offset, window, chunked): every head dim with Sq not a
+# multiple of the 16-position tile and with the suffix shape (32 over 96);
+# then several K/V tiles, double-buffered, with masked tiles skipped
+TC_SHAPES = [(hd, sq, skv, off, None, False) for hd in (32, 64, 128, 256)
+             for sq, skv, off in ((45, 45, 0), (32, 96, 64))] + [
+    (128, 300, 300, 0, 40, False), (64, 200, 260, 60, 50, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,sq,skv,offset,window,chunked", TC_SHAPES)
+def test_cuda_flash_prefill_tensor_core_shapes(dev, hd, sq, skv, offset,
+                                               window, chunked):
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, h, kh = 2, 8, 2
+    q = torch.randn(b, sq, h, hd, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, skv, kh, hd, generator=gen, device=dev).bfloat16()
+            for _ in "kv")
+    kw = dict(window=window, chunked=chunked)
+    if offset:
+        kw.update(qpos=torch.arange(offset, offset + sq, dtype=torch.int32,
+                                    device=dev),
+                  kpos=torch.arange(skv, dtype=torch.int32, device=dev))
+    got = fp.flash_prefill(q, k, v, **kw)
+    want = fp.flash_prefill_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _attn_close(got, want, torch.bfloat16)
