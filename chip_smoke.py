@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # the whole check; needs one CUDA GPU
-    python3 chip_smoke.py --profile   # also profile decode steps by kernel,
-                                      # attention kernels on and off
+    python3 chip_smoke.py --profile   # also profile decode steps by kernel
+                                      # (attention kernels on and off): SGMV
+                                      # ms, host syncs and busy share per step
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
@@ -19,13 +20,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    pool slots; T = 8 decode rows and every prefill group size the serve
    forms, 1..8 rows × buckets 32/64 = 32..512 tokens, which reaches every
    block size and accumulator layout of the kernels; bf16 and f32
-   activations, f32 pool), each timed with CUDA events (L2 flushed
+   activations, f32 pool; both kernels given the plan's ``n_used``, as the
+   main path calls them), each timed with CUDA events (L2 flushed
    between launches) beside its plain version, a one-call library
    yardstick, and the least time the card could take (its bound: the
    bytes and FLOPs of the T real rows and the adapters they use; the
-   figure for the whole padded buffer the kernels walk is kept beside
-   it as ``bound_padded_ms``). ``paged_gather_pages`` at the paged
-   decode step's shape (32 layers, 137 pages of 16 tokens × 8·128
+   figure for the whole padded buffer is kept beside it as
+   ``bound_padded_ms``), with the wrapper's host µs per call while the
+   card is busy (``enqueue_us``); ``ops.sgmv`` timed by CUDA events, by
+   the host clock to a sync, and by its host µs per call; the timing
+   method's floor (a 4-byte memset timed the same way) beside them.
+   ``paged_gather_pages`` at the paged decode step's shape (32 layers, 137 pages of 16 tokens × 8·128
    features, 8 rows × 17 table entries mixing shuffled pages, repeats
    and an idle all -1 row) in bf16 and f32, bit-equal to its plain
    version, timed beside it, ``torch.index_select`` and its bound.
@@ -45,7 +50,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``sgmv``), serving a synthetic multi-tenant trace to completion with
    adapters that have nonzero B. The kernels' launch counts are zeroed
    just before the serve and must have risen just after, in its prefill
-   steps and in its decode steps alike (each counted apart). On one decode
+   steps and in its decode steps alike (each counted apart): each SGMV
+   kernel 160 times per step call (5 LoRA modules x 32 layers), in every
+   serve. On one decode
    step's inputs, the ``sgmv`` and ``einsum`` backends must agree on the
    logits. Every serve runs with the default ``attn_kernel=None``, which
    must resolve to the attention kernels: ``flash_prefill`` launches 32
@@ -185,9 +192,8 @@ def cuda_ms(torch, fn, flush, iters: int = 20, warm: int = 3) -> float:
 
 
 def host_ms(torch, fn, iters: int = 20, warm: int = 3) -> float:
-    """Mean wall ms of ``fn`` up to a device sync. For the whole
-    ``ops.sgmv`` path: its grouping plan synchronises with the host
-    (``torch.bincount``), so device events would time host gaps anyway."""
+    """Mean wall ms of ``fn`` up to a device sync: the whole ``ops.sgmv``
+    path as a caller waiting on its result sees it."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -201,7 +207,9 @@ def host_ms(torch, fn, iters: int = 20, warm: int = 3) -> float:
 def enqueue_us(torch, fn, iters: int = 50, warm: int = 3) -> float:
     """Mean host µs per call of ``fn`` while the card is kept busy (a
     device-side sleep of ~50 ms queued first), so no call waits on the
-    device: the wrapper's own cost (checks, allocations, launches)."""
+    device: the wrapper's own cost (checks, allocations, launches). Keep
+    ``iters`` x launches per call well under CUDA's launch queue (about a
+    thousand), or the host blocks on a full queue."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -231,7 +239,10 @@ def kernel_phase(torch, dev):
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    rows = []
+    # the timing method's floor: one 4-byte memset timed as the kernels are
+    tiny = torch.empty(1, dtype=torch.float32, device=dev)
+    rows = [dict(kernel="event_floor", ms=cuda_ms(torch, tiny.zero_, flush))]
+    log(f"event floor (one 4-byte memset): {1e3 * rows[0]['ms']:.1f} us")
 
     def inputs(t, d_in, d_out, dtype):
         x = torch.randn(t, d_in, generator=gen, device=dev).to(dtype)
@@ -260,9 +271,10 @@ def kernel_phase(torch, dev):
         for phase, t in CASES:
             for d_in in SHRINK_D:
                 x, a, _, slots, blk_t, plan, xbuf = inputs(t, d_in, 16, dtype)
-                bs = plan.block_slots
-                got = sgmv.sgmv_shrink(xbuf, a, bs, blk_t=blk_t)
-                want = sgmv.shrink_plain(xbuf, a, bs, blk_t=blk_t)
+                bs, nu = plan.block_slots, plan.n_used
+                got = sgmv.sgmv_shrink(xbuf, a, bs, blk_t=blk_t, n_used=nu)
+                want = sgmv.shrink_plain(xbuf, a, bs, blk_t=blk_t,
+                                         n_used=nu)
                 torch.cuda.synchronize()
                 e = err(got, want, "float32")
                 nb = bs.numel()
@@ -283,23 +295,25 @@ def kernel_phase(torch, dev):
                 rows.append(dict(
                     kernel="sgmv_shrink", phase=phase, dtype=dname, T=t,
                     T_pad=xbuf.shape[0], blk_t=blk_t, d=d_in,
-                    max_abs_err=e,
+                    n_used=int(nu), max_abs_err=e,
                     ms=cuda_ms(torch, lambda: sgmv.sgmv_shrink(
-                        xbuf, a, bs, blk_t=blk_t), flush),
+                        xbuf, a, bs, blk_t=blk_t, n_used=nu), flush),
                     plain_ms=cuda_ms(torch, lambda: sgmv.shrink_plain(
-                        xbuf, a, bs, blk_t=blk_t), flush),
+                        xbuf, a, bs, blk_t=blk_t, n_used=nu), flush),
+                    host_us=enqueue_us(torch, lambda: sgmv.sgmv_shrink(
+                        xbuf, a, bs, blk_t=blk_t, n_used=nu)),
                     library_ms=cuda_ms(torch, lambda: torch.bmm(xb, a_t),
                                        flush),
                     bound_ms=bnd, bound_by=by, bound_padded_ms=bnd_pad))
             for d_out in EXPAND_D:
                 _, _, b, slots, blk_t, plan, xbuf = inputs(t, 16, d_out, dtype)
-                bs = plan.block_slots
+                bs, nu = plan.block_slots, plan.n_used
                 s = torch.randn(xbuf.shape[0], RANK, generator=gen,
                                 device=dev)
                 got = sgmv.sgmv_expand(s, b, bs, blk_t=blk_t,
-                                       compute_dtype=dtype)
+                                       compute_dtype=dtype, n_used=nu)
                 want = sgmv.expand_plain(s, b, bs, blk_t=blk_t,
-                                         compute_dtype=dtype)
+                                         compute_dtype=dtype, n_used=nu)
                 torch.cuda.synchronize()
                 e = err(got, want, "float32")
                 nb = bs.numel()
@@ -319,11 +333,17 @@ def kernel_phase(torch, dev):
                     2.0 * s.shape[0] * RANK * d_out, "float32")
                 rows.append(dict(
                     kernel="sgmv_expand", phase=phase, dtype=dname, T=t,
-                    T_pad=s.shape[0], blk_t=blk_t, d=d_out, max_abs_err=e,
+                    T_pad=s.shape[0], blk_t=blk_t, d=d_out, n_used=int(nu),
+                    max_abs_err=e,
                     ms=cuda_ms(torch, lambda: sgmv.sgmv_expand(
-                        s, b, bs, blk_t=blk_t, compute_dtype=dtype), flush),
+                        s, b, bs, blk_t=blk_t, compute_dtype=dtype,
+                        n_used=nu), flush),
                     plain_ms=cuda_ms(torch, lambda: sgmv.expand_plain(
-                        s, b, bs, blk_t=blk_t, compute_dtype=dtype), flush),
+                        s, b, bs, blk_t=blk_t, compute_dtype=dtype,
+                        n_used=nu), flush),
+                    host_us=enqueue_us(torch, lambda: sgmv.sgmv_expand(
+                        s, b, bs, blk_t=blk_t, compute_dtype=dtype,
+                        n_used=nu)),
                     library_ms=cuda_ms(torch, lambda: torch.bmm(sb, b_t),
                                        flush),
                     bound_ms=bnd, bound_by=by, bound_padded_ms=bnd_pad))
@@ -335,11 +355,15 @@ def kernel_phase(torch, dev):
                                            slots, 1.0)).to(dtype)
                 torch.cuda.synchronize()
                 e = err(got, want, dname)
+                def call():
+                    return ops.sgmv(x, a, b, slots, 2.0, n_slots=R_POOL,
+                                    blk_t=None)
                 rows.append(dict(
                     kernel="ops.sgmv", phase=phase, dtype=dname, T=t,
                     module=mod, d_in=d_in, d_out=d_out, max_abs_err=e,
-                    wall_ms=host_ms(torch, lambda: ops.sgmv(
-                        x, a, b, slots, 2.0, n_slots=R_POOL, blk_t=None))))
+                    ms=cuda_ms(torch, call, flush), wall_ms=host_ms(
+                        torch, call), host_us=enqueue_us(torch, call,
+                                                         iters=10)))
             log(f"kernels {phase:7s} T={t:3d} {dname:8s} ok")
     return rows
 
@@ -733,9 +757,8 @@ def serve_phase(torch, dev, profile: bool):
         check(all(0 <= t < cfg.vocab_size for t in r.tokens),
               f"request {r.request_id}: token out of range")
     for path, counts in path_launches.items():
-        for name in ("sgmv_shrink", "sgmv_expand"):
-            check(counts[name] > 0, f"{name} was never launched in the "
-                  f"serve's {path} steps")
+        _check_sgmv_launches(f"dense serve, {path} steps", counts,
+                             len(step_ms[path]))
     check(path_launches["prefill"]["flash_decode"] == 0
           and path_launches["decode"]["flash_prefill"] == 0,
           f"attention kernel on the wrong path: {path_launches}")
@@ -848,6 +871,16 @@ def _reset_counts() -> None:
         mod.reset_launches()
 
 
+def _check_sgmv_launches(where, launches, step_calls):
+    """Every LoRA module of every layer of every step call launches each
+    SGMV kernel once."""
+    want = N_LAYERS * len(MODULES) * step_calls
+    got = {k: launches[k] for k in ("sgmv_shrink", "sgmv_expand")}
+    check(want > 0 and all(n == want for n in got.values()),
+          f"{where}: SGMV launches {got}, want {want} ({N_LAYERS} layers x "
+          f"{len(MODULES)} modules per step call over {step_calls} calls)")
+
+
 def _check_attention_launches(where, launches, prefill_calls, decode_calls):
     """Every layer of every prefill / decode step call launches its
     attention kernel once."""
@@ -933,9 +966,9 @@ def paged_compare_phase(torch, dev, shared):
         check(summary.n_completed == summary.n_requests == len(trace) >= 6,
               f"{backend}: completed {summary.n_completed}/"
               f"{summary.n_requests}")
-        for name in ("sgmv_shrink", "sgmv_expand"):
-            check(launches[name] > 0, f"{backend}: {name} never launched")
         n_dec = len(steps[decode])
+        _check_sgmv_launches(f"{backend} serve", launches,
+                             len(steps["_prefill"]) + n_dec)
         gathers = launches["paged_gather_pages"]
         if backend == "paged":
             check(gathers == 2 * n_dec > 0,
@@ -1045,6 +1078,8 @@ def prefix_chunk_phase(torch, dev, shared):
     prefill_ms = steps["_prefill"] + steps["_prefill_suffix"]
     _check_attention_launches("prefix/chunk serve", launches,
                               len(prefill_ms), len(steps["_decode_paged"]))
+    _check_sgmv_launches("prefix/chunk serve", launches,
+                         len(prefill_ms) + len(steps["_decode_paged"]))
     row = summary_row("edgelora", cfg.lora.n_adapters, summary)
     out = dict(requests=len(trace), serve_s=serve_s, launches=launches,
                prompt_lens=[r.prompt_len for r in trace],
@@ -1093,7 +1128,17 @@ def profile_decode(torch, decode, engine, captured, label: str,
             torch.cuda.synchronize()
             wall += time.perf_counter() - t0
     rows = []
+    # host waits on the device: the runtime's synchronising calls (less
+    # the two of the loop above per step) and device-to-host copies
+    sync_calls = dtoh = 0
     for ev in prof.key_averages():
+        if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaEventSynchronize"):
+            sync_calls += ev.count
+        if ev.device_type == torch.autograd.DeviceType.CUDA and (
+                "DtoH" in ev.key or "Device -> Pageable" in ev.key
+                or "Device -> Pinned" in ev.key):
+            dtoh += ev.count
         # device-side rows only (kernels, memcpy, memset): a CPU op's row
         # repeats the device time of the kernels it launched
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -1104,17 +1149,29 @@ def profile_decode(torch, decode, engine, captured, label: str,
         rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
+    kernel_ms = {name: sum(r[0] for r in rows if name in r[1]) / 1e3 / steps
+                 for name in ("sgmv_shrink", "sgmv_expand")}
+    kernel_calls = {name: sum(r[2] for r in rows if name in r[1]) / steps
+                    for name in kernel_ms}
+    syncs = max(0, sync_calls - 2 * steps) / steps
     log(f"profile ({label}): {steps} decode steps, wall "
         f"{1e3 * wall / steps:.2f} ms/step, device busy "
         f"{busy_ms / steps:.2f} ms/step "
         f"({100 * busy_ms / (1e3 * wall):.1f}% of wall), "
-        f"{sum(r[2] for r in rows) // steps} device ops/step")
+        f"{sum(r[2] for r in rows) // steps} device ops/step, "
+        f"{syncs:.1f} sync calls and {dtoh / steps:.1f} device-to-host "
+        f"copies per step; " + ", ".join(
+            f"{k} {v:.3f} ms/step ({kernel_calls[k]:.0f} calls)"
+            for k, v in kernel_ms.items()))
     for us, key, count in rows[:15]:
         log(f"  {us / 1e3 / steps:8.3f} ms/step  {count // steps:5d}/step"
             f"  {key[:90]}")
     return dict(wall_ms_per_step=1e3 * wall / steps,
                 busy_ms_per_step=busy_ms / steps,
                 device_ops_per_step=sum(r[2] for r in rows) / steps,
+                sync_calls_per_step=syncs, dtoh_copies_per_step=dtoh / steps,
+                kernel_ms_per_step=kernel_ms,
+                kernel_calls_per_step=kernel_calls,
                 top=[dict(ms_per_step=us / 1e3 / steps,
                           calls_per_step=count / steps, name=key)
                      for us, key, count in rows[:40]])
@@ -1208,7 +1265,7 @@ def main(argv=None) -> int:
                             if x["kernel"] == name),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            bound_padded_ms=r["bound_padded_ms"],
+            bound_padded_ms=r["bound_padded_ms"], host_us=r["host_us"],
             shape=f"decode T={r['T']} (T_pad={r['T_pad']}) d={r['d']} "
                   f"r={RANK} R={R_POOL} {r['dtype']} x, f32 pool"))
     g = next(r for r in gather_rows if r["dtype"] == "bfloat16")

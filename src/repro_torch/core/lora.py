@@ -112,7 +112,7 @@ def _lora_delta_sgmv(x: torch.Tensor, a_stack: torch.Tensor,
     ids = adapter_ids.to(torch.int32)
     if x.dim() == 3:
         b, s, d_in = x.shape
-        token_slots = ids.repeat_interleave(s)
+        token_slots = ids[:, None].expand(b, s).reshape(-1)
         flat = x.reshape(b * s, d_in)
     else:
         token_slots = ids

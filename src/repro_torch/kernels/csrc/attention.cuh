@@ -2,7 +2,8 @@
 // flash_prefill.cu): element conversion, the position mask, warp
 // reductions, the f32 tile loader of the scalar prefill template, and
 // inline PTX for Hopper's asynchronous copies (cp.async), shared-memory
-// matrix loads (ldmatrix) and bf16 tensor-core products (mma.sync).
+// matrix loads (ldmatrix) and bf16 tensor-core products (mma.sync); the
+// SGMV kernels (sgmv.cu) use the inline PTX too.
 //
 // The mask and the sentinel follow the TPU kernels exactly. A masked
 // score is the finite -1e30 (NEG_INF in src/repro/kernels/*.py), not -inf:

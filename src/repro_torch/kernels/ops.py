@@ -5,8 +5,10 @@ Fig. 6: gather tokens into adapter-homogeneous u-batches (sorted and
 padded to the kernel block size), run the grouped shrink/expand kernels,
 and scatter the results back to the original batch order. Every shape is
 a function of (T, R, blk_t) only, as in the reference: the padded token
-count is the static bound ``ceil(T/blk_t)·blk_t + R·blk_t``, so the plan
-never waits on the device.
+count is the static bound ``ceil(T/blk_t)·blk_t + R·blk_t``. The plan is
+computed on the device without a host sync, and the number of blocks that
+really hold tokens (``n_used``) stays there: the kernels read it and skip
+the weights of the zero padding blocks.
 
 ``paged_gather`` is the paged KV arena's page fetch: any-rank arena
 leaves through the ``paged_gather_pages`` kernel.
@@ -49,6 +51,8 @@ class Grouping(NamedTuple):
     perm: torch.Tensor         # [T] int64 sort permutation
     block_slots: torch.Tensor  # [nb] int32 adapter slot owning each block
     n_padded: int              # nb * blk_t
+    n_used: torch.Tensor       # () int32 blocks that hold tokens (the rest
+    #                            are zero padding), on the device
 
 
 def plan_grouping(token_slots: torch.Tensor, n_slots: int,
@@ -57,8 +61,11 @@ def plan_grouping(token_slots: torch.Tensor, n_slots: int,
 
     Tokens are stably sorted by slot; each slot's run is padded to a
     multiple of blk_t so every kernel block is adapter-homogeneous.
-    Blocks past the last used one point at the last slot; they hold zero
-    padding and are scattered nowhere.
+    Blocks past the last used one (``n_used``, the cumulative block count's
+    last entry) point at the last slot; they hold zero padding and are
+    scattered nowhere. Every step stays on the device: the per-slot counts
+    are a ``scatter_add_``, not ``torch.bincount``, which reads its input's
+    maximum back to the host.
     """
     t = token_slots.shape[0]
     nb = -(-t // blk_t) + n_slots
@@ -66,7 +73,8 @@ def plan_grouping(token_slots: torch.Tensor, n_slots: int,
     slots = token_slots.long()
     perm = torch.argsort(slots, stable=True)
     sorted_slots = slots[perm]
-    counts = torch.bincount(slots, minlength=n_slots)[:n_slots]      # [R]
+    counts = torch.zeros(n_slots, dtype=torch.long, device=dev)
+    counts.scatter_add_(0, slots, torch.ones_like(slots))            # [R]
     padded_counts = -(-counts // blk_t) * blk_t                      # [R]
     starts = torch.cumsum(padded_counts, 0) - padded_counts          # [R]
     run_start = torch.cumsum(counts, 0) - counts                     # [R]
@@ -76,7 +84,8 @@ def plan_grouping(token_slots: torch.Tensor, n_slots: int,
     block_slots = torch.searchsorted(
         cum_blocks, torch.arange(nb, device=dev), right=True)
     block_slots = block_slots.clamp(0, n_slots - 1).to(torch.int32)
-    return Grouping(padded_pos, perm, block_slots, nb * blk_t)
+    n_used = cum_blocks[-1].to(torch.int32)
+    return Grouping(padded_pos, perm, block_slots, nb * blk_t, n_used)
 
 
 def sgmv(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
@@ -89,7 +98,7 @@ def sgmv(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
     x.dtype. The adapters are rounded to x.dtype inside the kernels (the
     reference casts the whole pool first: the same numbers, without
     re-materialising the pool on every call). blk_t=None picks the block
-    size from (T, R) via ``auto_blk_t``.
+    size from (T, R) via ``auto_blk_t``. No step waits on the device.
     """
     t, d_in = x.shape
     if blk_t is None:
@@ -98,9 +107,10 @@ def sgmv(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
     pos = plan.padded_pos.long()
     xbuf = x.new_zeros((plan.n_padded, d_in))
     xbuf[pos] = x[plan.perm]                        # Fig. 6 gather
-    s = sgmv_shrink(xbuf, a_stack, plan.block_slots, blk_t=blk_t)
+    s = sgmv_shrink(xbuf, a_stack, plan.block_slots, blk_t=blk_t,
+                    n_used=plan.n_used)
     y = sgmv_expand(s, b_stack, plan.block_slots, blk_t=blk_t,
-                    compute_dtype=x.dtype)
+                    compute_dtype=x.dtype, n_used=plan.n_used)
     out = torch.empty((t, b_stack.shape[1]), dtype=y.dtype, device=y.device)
     out[plan.perm] = y[pos]                         # Fig. 6 scatter
     return (scale * out).to(x.dtype)

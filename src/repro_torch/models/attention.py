@@ -41,8 +41,9 @@ def rope_frequencies(head_dim: int, theta: float,
                      device: Any = None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # a Python scalar base: a tensor made from it on the card would be a
+    # host-to-device copy, which waits on the device (twice per layer)
+    return 1.0 / torch.pow(float(theta), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

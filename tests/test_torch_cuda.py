@@ -51,6 +51,221 @@ def test_cuda_kernels_match_plain(dev, dtype):
         assert err < 1e-5, err
 
 
+def _sgmv_problem(dev, dtype, blk_t, r, d_in, d_out, nb=6, n_slots=5,
+                  seed=0):
+    """A padded buffer of ``nb`` blocks whose every row is nonzero (so
+    zeros past ``n_used`` show that the kernels did not read them), f32
+    pool, random block slots."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(nb * blk_t, d_in, generator=gen, device=dev).to(dtype)
+    s = torch.randn(nb * blk_t, r, generator=gen, device=dev)
+    a = torch.randn(n_slots, r, d_in, generator=gen, device=dev)
+    b = torch.randn(n_slots, d_out, r, generator=gen, device=dev)
+    bs = torch.randint(0, n_slots, (nb,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    return x, s, a, b, bs
+
+
+def _sgmv_close(got, want):
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("used", ["below", "at", "absent"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [4, 16, 32, 64])
+@pytest.mark.parametrize("blk_t", [8, 16, 32, 128])
+def test_cuda_sgmv_kernels_match_plain_sweep(dev, blk_t, r, dtype, used):
+    """Both kernels against their plain versions, ragged d_in / d_out
+    (1000 and 333 against the 64-column shrink tile and the 128-column
+    expand tile), with ``n_used`` below the block count (the rows past it
+    must come out zero), at it, and absent. Within 1e-5 of max|plain|."""
+    nb = 6
+    x, s, a, b, bs = _sgmv_problem(dev, dtype, blk_t, r, 1000, 333, nb=nb)
+    n_used = {"below": torch.tensor(nb - 2, dtype=torch.int32, device=dev),
+              "at": torch.tensor(nb, dtype=torch.int32, device=dev),
+              "absent": None}[used]
+    got_s = sgmv.sgmv_shrink(x, a, bs, blk_t=blk_t, n_used=n_used)
+    got_y = sgmv.sgmv_expand(s, b, bs, blk_t=blk_t, compute_dtype=dtype,
+                             n_used=n_used)
+    want_s = sgmv.shrink_plain(x, a, bs, blk_t=blk_t, n_used=n_used)
+    want_y = sgmv.expand_plain(s, b, bs, blk_t=blk_t, compute_dtype=dtype,
+                               n_used=n_used)
+    torch.cuda.synchronize()
+    _sgmv_close(got_s, want_s)
+    _sgmv_close(got_y, want_y)
+    if used == "below":
+        assert not got_s[(nb - 2) * blk_t:].any()
+        assert not got_y[(nb - 2) * blk_t:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,d_in,d_out,blk_t", [
+    (7, 333, 1000, 8),      # r % 4 != 0, odd d_in: element-wise loads
+    (20, 4096, 4096, 8),    # two rank tiles, the second part-filled
+    (48, 333, 77, 12),      # blk_t not a multiple of 8, d_out < 128
+])
+def test_cuda_sgmv_unaligned_shapes(dev, dtype, r, d_in, d_out, blk_t):
+    x, s, a, b, bs = _sgmv_problem(dev, dtype, blk_t, r, d_in, d_out,
+                                   seed=1)
+    n_used = torch.tensor(4, dtype=torch.int32, device=dev)
+    for n in (n_used, None):
+        _sgmv_close(sgmv.sgmv_shrink(x, a, bs, blk_t=blk_t, n_used=n),
+                    sgmv.shrink_plain(x, a, bs, blk_t=blk_t, n_used=n))
+        _sgmv_close(sgmv.sgmv_expand(s, b, bs, blk_t=blk_t,
+                                     compute_dtype=dtype, n_used=n),
+                    sgmv.expand_plain(s, b, bs, blk_t=blk_t,
+                                      compute_dtype=dtype, n_used=n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_used,nb,d_in", [
+    (8, 21, 4096),      # decode: 33 splits per used block, merged
+    (600, 620, 128),    # more used blocks than CTAs: each CTA loops
+    (1, 21, 14336),     # one block split over the whole grid
+    (0, 21, 4096),      # no tokens: all zeros
+])
+def test_cuda_sgmv_shrink_split_and_merge(dev, n_used, nb, d_in):
+    """The device-side work split at its extremes; the arrival counters
+    are back at zero after the call; two calls are bit-equal."""
+    x, _, a, _, bs = _sgmv_problem(dev, torch.bfloat16, 8, 32, d_in, 16,
+                                   nb=nb, n_slots=20, seed=2)
+    nu = torch.tensor(n_used, dtype=torch.int32, device=dev)
+    got = sgmv.sgmv_shrink(x, a, bs, blk_t=8, n_used=nu)
+    again = sgmv.sgmv_shrink(x, a, bs, blk_t=8, n_used=nu)
+    want = sgmv.shrink_plain(x, a, bs, blk_t=8, n_used=nu)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if n_used:
+        _sgmv_close(got, want)
+    assert not got.any() if n_used == 0 else not got[n_used * 8:].any()
+    for arrived, _ in sgmv._SCRATCH.values():
+        assert not arrived.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sgmv_repeats_are_bit_equal(dev, dtype):
+    """Decode and prefill shapes of the main path: the split partials are
+    merged in split order, so two calls give the same bits."""
+    for t, d_in, d_out in ((8, 4096, 4096), (512, 14336, 4096)):
+        gen = torch.Generator(device=dev).manual_seed(t)
+        x = torch.randn(t, d_in, generator=gen, device=dev).to(dtype)
+        a = torch.randn(20, 32, d_in, generator=gen, device=dev)
+        b = torch.randn(20, d_out, 32, generator=gen, device=dev)
+        slots = torch.randint(0, 20, (t,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        blk_t = ops.auto_blk_t(t, 20)
+        plan = ops.plan_grouping(slots, 20, blk_t)
+        xbuf = x.new_zeros((plan.n_padded, d_in))
+        xbuf[plan.padded_pos.long()] = x[plan.perm]
+        outs = [sgmv.sgmv_shrink(xbuf, a, plan.block_slots, blk_t=blk_t,
+                                 n_used=plan.n_used) for _ in range(2)]
+        ys = [sgmv.sgmv_expand(outs[0], b, plan.block_slots, blk_t=blk_t,
+                               compute_dtype=dtype, n_used=plan.n_used)
+              for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1]) and torch.equal(ys[0], ys[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [8, 256])
+def test_cuda_ops_sgmv_makes_no_host_sync(dev, t):
+    """``ops.sgmv`` at the decode shape (8 rows) and a prefill group's (256
+    rows), and the LoRA layer's flatten of [B, S, d] around it, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any device-to-host sync
+    raises. One launch of each kernel per call."""
+    from repro_torch.core.lora import lora_delta_batched
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(t, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    a = torch.randn(20, 32, 4096, generator=gen, device=dev)
+    b = torch.randn(20, 1024, 32, generator=gen, device=dev)
+    slots = torch.randint(0, 20, (t,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    rows = slots[:8]
+    x3 = x.reshape(8, t // 8, 4096)
+
+    def run():
+        y = ops.sgmv(x, a, b, slots, 0.5, n_slots=20, blk_t=None)
+        d = lora_delta_batched(x3, a, b, rows, 0.5, backend="sgmv")
+        return y, d
+
+    want = run()                    # warm: build, bind, size the grid
+    torch.cuda.synchronize()
+    sgmv.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        # the mode sees the sync that plan_grouping used to make
+        with pytest.raises(RuntimeError):
+            torch.bincount(slots.long(), minlength=20)
+        got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert sgmv.launches == {"sgmv_shrink": 2, "sgmv_expand": 2}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_step_makes_no_host_sync(dev):
+    """One bf16 decode step of the reduced Llama with per-row adapters
+    through the SGMV kernels and attention through ``flash_decode``, under
+    ``torch.cuda.set_sync_debug_mode("error")``: neither the LoRA path nor
+    the rest of the step (RoPE's frequencies included) waits on the card.
+    Same logits as the step run without the mode."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lora import LoRAMode
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(reduced_config(get_config("llama3-8b")),
+                              dtype="bfloat16")
+    model = build_model(cfg, dev, attn_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = model.init(gen)
+    pool = model.init_lora(gen, n_slots=4)
+    for mods in pool["layers"].values():
+        for pair in mods.values():
+            pair["B"].normal_(0.0, 0.01, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (3,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pos = torch.tensor([5, 0, 11], dtype=torch.int32, device=dev)
+    mode = LoRAMode("batched", torch.tensor([2, 0, 2], dtype=torch.int32,
+                                            device=dev), 0.5, "sgmv")
+
+    def step():
+        cache = model.init_cache(3, 16)
+        return model.decode_step(params, tokens, cache, pos, pool, mode)[0]
+
+    want = step()
+    torch.cuda.synchronize()
+    sgmv.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    n_lora = cfg.n_layers * len(cfg.lora.target_modules)
+    assert sgmv.launches == {"sgmv_shrink": n_lora, "sgmv_expand": n_lora}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_sgmv_counts_one_launch_per_call(dev):
+    x, s, a, b, bs = _sgmv_problem(dev, torch.bfloat16, 8, 32, 256, 128)
+    sgmv.reset_launches()
+    sgmv.sgmv_shrink(x, a, bs, blk_t=8)
+    assert sgmv.launches == {"sgmv_shrink": 1, "sgmv_expand": 0}
+    sgmv.sgmv_expand(s, b, bs, blk_t=8, compute_dtype=torch.bfloat16)
+    assert sgmv.launches == {"sgmv_shrink": 1, "sgmv_expand": 1}
+    sgmv.shrink_plain(x, a, bs, blk_t=8)
+    sgmv.expand_plain(s, b, bs, blk_t=8, compute_dtype=torch.bfloat16)
+    assert sgmv.launches == {"sgmv_shrink": 1, "sgmv_expand": 1}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8])

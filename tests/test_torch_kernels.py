@@ -39,6 +39,11 @@ def _assert_plans_equal(slots: np.ndarray, n_slots: int, blk_t: int):
     np.testing.assert_array_equal(np.asarray(pj.block_slots),
                                   pt.block_slots.numpy())
     assert pj.n_padded == pt.n_padded
+    # the blocks that hold tokens: the reference's cumulative block count
+    counts = jnp.bincount(jnp.asarray(slots), length=n_slots)
+    want_used = int(jnp.cumsum(-(-counts // blk_t))[-1])
+    assert pt.n_used.dtype == torch.int32 and pt.n_used.shape == ()
+    assert int(pt.n_used) == want_used
 
 
 @pytest.mark.parametrize("t,d_in,d_out,r,n_slots,blk_t", SWEEP)
