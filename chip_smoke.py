@@ -74,6 +74,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    complete with prefix hits, saved prefill tokens and at least one
    request prefilled in more than one chunk.
 
+7. qwen2-0.5b at full width (bf16, 24 layers, d 896, 14/2 heads, hd 64,
+   d_ff 4864, vocab 151936, QKV bias drawn nonzero, tied embeddings; LoRA
+   rank 16 on q,k,v,o,up,gate,down, a pool of 32, 64 adapters, whose
+   17.6 MB each fit llamacpp's default ``memory_budget``), every serve
+   under its own fake timer: ``edgelora``, ``llamacpp`` (merged only) and
+   ``dlora`` on a single-adapter trace (merged only) and on an
+   adapter-diverse one (must unmerge), each dense and paged with equal
+   streams and summaries. Every step call is counted apart: each SGMV
+   kernel 168 times (7 modules x 24 layers) on an unmerged step and never
+   on a merged one, the step's attention kernel 24 times, the page
+   gather twice per paged decode step. The kernel phase (3) runs again
+   at qwen2-0.5b's decode and full-prefill shapes.
+8. Tracing: one ``edgelora`` serve with an ``EngineTracer``: streams and
+   summary equal to the untraced serve's; the exported trace
+   (``chiprun_out/qwen2_trace.json``) passes ``tools/trace_export.py``
+   and reads back through ``tools/trace_report.py`` (unchanged; its two
+   helper imports resolved to the port's jax-free copies). Then an
+   ``edgelora`` serve on an overcommitted arena (24 pages, a seventh of
+   dense capacity) with the prefix cache: deferrals or preemptions,
+   copy-on-write pages, streams equal to a dense serve's.
+9. Full-width bf16 steps of qwen2-0.5b, llama3.2-3b and openelm-1.1b:
+   one prefill and one decode step on four routes (attention kernels
+   on/off x sgmv/einsum LoRA), the kernel route's logits held against
+   each other route's.
+
 Each serve's kernel launch counts are zeroed just before it and read just
 after; every kernel its path runs must have launched.
 
@@ -139,6 +164,25 @@ ATTN_STEP_TOL = 5e-2
 # instead of zeros, which makes each LoRA delta about 15% of its base
 # projection at fan-in scale
 B_STD = 1e-3
+
+# The shapes each kernel phase runs at, per model: LoRA pool slots and
+# rank, shrink d_in and expand d_out, the LoRA modules (d_in, d_out), the
+# (phase, T) cases, attention heads (h, kv heads, head dim) and layers.
+LLAMA_SPEC = dict(
+    model="llama3.1-8b", r_pool=R_POOL, rank=RANK, shrink_d=SHRINK_D,
+    expand_d=EXPAND_D, modules=MODULES, cases=CASES,
+    heads=(N_HEADS, N_KV_HEADS, HEAD_DIM), layers=N_LAYERS)
+# qwen2-0.5b (configs/qwen2_0_5b.py): 24 layers, d 896, 14 heads over 2
+# kv heads (GQA group 7), hd 64, d_ff 4864; LoRA rank 16 on all seven
+# modules, a pool of 32; its decode step and its full prefill group
+QWEN_SPEC = dict(
+    model="qwen2-0.5b", r_pool=32, rank=16, shrink_d=(896, 4864),
+    expand_d=(128, 896, 4864),
+    modules={"q": (896, 896), "k": (896, 128), "v": (896, 128),
+             "o": (896, 896), "up": (896, 4864), "gate": (896, 4864),
+             "down": (4864, 896)},
+    cases=[("decode", N_SLOTS), ("prefill", 512)], heads=(14, 2, 64),
+    layers=24)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -234,26 +278,28 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 # ---------------------------------------------------------------------------
 
 
-def kernel_phase(torch, dev):
+def kernel_phase(torch, dev, spec):
     from repro_torch.kernels import ops, ref, sgmv
 
+    r_pool, rank, model = spec["r_pool"], spec["rank"], spec["model"]
     gen = torch.Generator(device=dev).manual_seed(1234)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     # the timing method's floor: one 4-byte memset timed as the kernels are
     tiny = torch.empty(1, dtype=torch.float32, device=dev)
-    rows = [dict(kernel="event_floor", ms=cuda_ms(torch, tiny.zero_, flush))]
+    rows = [dict(kernel="event_floor", model=model,
+                 ms=cuda_ms(torch, tiny.zero_, flush))]
     log(f"event floor (one 4-byte memset): {1e3 * rows[0]['ms']:.1f} us")
 
     def inputs(t, d_in, d_out, dtype):
         x = torch.randn(t, d_in, generator=gen, device=dev).to(dtype)
-        a = torch.randn(R_POOL, RANK, d_in, generator=gen,
-                        device=dev) / RANK ** 0.5
-        b = torch.randn(R_POOL, d_out, RANK, generator=gen,
+        a = torch.randn(r_pool, rank, d_in, generator=gen,
+                        device=dev) / rank ** 0.5
+        b = torch.randn(r_pool, d_out, rank, generator=gen,
                         device=dev) * 0.01
-        slots = torch.randint(0, R_POOL, (t,), generator=gen, device=dev,
+        slots = torch.randint(0, r_pool, (t,), generator=gen, device=dev,
                               dtype=torch.int32)
-        blk_t = ops.auto_blk_t(t, R_POOL)
-        plan = ops.plan_grouping(slots, R_POOL, blk_t)
+        blk_t = ops.auto_blk_t(t, r_pool)
+        plan = ops.plan_grouping(slots, r_pool, blk_t)
         xbuf = x.new_zeros((plan.n_padded, d_in))
         xbuf[plan.padded_pos.long()] = x[plan.perm]
         return x, a, b, slots, blk_t, plan, xbuf
@@ -268,8 +314,8 @@ def kernel_phase(torch, dev):
     for dname in ("bfloat16", "float32"):
         dtype = getattr(torch, dname)
         esize = torch.empty((), dtype=dtype).element_size()
-        for phase, t in CASES:
-            for d_in in SHRINK_D:
+        for phase, t in spec["cases"]:
+            for d_in in spec["shrink_d"]:
                 x, a, _, slots, blk_t, plan, xbuf = inputs(t, d_in, 16, dtype)
                 bs, nu = plan.block_slots, plan.n_used
                 got = sgmv.sgmv_shrink(xbuf, a, bs, blk_t=blk_t, n_used=nu)
@@ -283,17 +329,18 @@ def kernel_phase(torch, dev):
                 # the function: T real rows of x, the A tiles of the slots
                 # those rows use, T rows of s; 2·r FLOPs per x element
                 used = int(torch.unique(slots).numel())
-                bnd, by = bound_ms(t * d_in * esize + used * RANK * d_in * 4
-                                   + t * RANK * 4, 2.0 * t * RANK * d_in,
+                bnd, by = bound_ms(t * d_in * esize + used * rank * d_in * 4
+                                   + t * rank * 4, 2.0 * t * rank * d_in,
                                    dname)
                 # what the kernels walk: every padded row and block
                 pad_used = int(torch.unique(bs).numel())
                 bnd_pad, _ = bound_ms(
-                    xbuf.numel() * esize + pad_used * RANK * d_in * 4
-                    + nb * 4 + xbuf.shape[0] * RANK * 4,
-                    2.0 * xbuf.shape[0] * RANK * d_in, dname)
+                    xbuf.numel() * esize + pad_used * rank * d_in * 4
+                    + nb * 4 + xbuf.shape[0] * rank * 4,
+                    2.0 * xbuf.shape[0] * rank * d_in, dname)
                 rows.append(dict(
-                    kernel="sgmv_shrink", phase=phase, dtype=dname, T=t,
+                    kernel="sgmv_shrink", model=model, phase=phase,
+                    dtype=dname, T=t, r=rank,
                     T_pad=xbuf.shape[0], blk_t=blk_t, d=d_in,
                     n_used=int(nu), max_abs_err=e,
                     ms=cuda_ms(torch, lambda: sgmv.sgmv_shrink(
@@ -305,10 +352,10 @@ def kernel_phase(torch, dev):
                     library_ms=cuda_ms(torch, lambda: torch.bmm(xb, a_t),
                                        flush),
                     bound_ms=bnd, bound_by=by, bound_padded_ms=bnd_pad))
-            for d_out in EXPAND_D:
+            for d_out in spec["expand_d"]:
                 _, _, b, slots, blk_t, plan, xbuf = inputs(t, 16, d_out, dtype)
                 bs, nu = plan.block_slots, plan.n_used
-                s = torch.randn(xbuf.shape[0], RANK, generator=gen,
+                s = torch.randn(xbuf.shape[0], rank, generator=gen,
                                 device=dev)
                 got = sgmv.sgmv_expand(s, b, bs, blk_t=blk_t,
                                        compute_dtype=dtype, n_used=nu)
@@ -317,22 +364,23 @@ def kernel_phase(torch, dev):
                 torch.cuda.synchronize()
                 e = err(got, want, "float32")
                 nb = bs.numel()
-                sb = s.reshape(nb, blk_t, RANK)
+                sb = s.reshape(nb, blk_t, rank)
                 b_t = b[bs.long()].to(dtype).float().transpose(
                     1, 2).contiguous()
                 # the function: T real rows of s, the B tiles of the slots
                 # those rows use, T f32 rows of y; 2·r FLOPs per y element
                 used = int(torch.unique(slots).numel())
-                bnd, by = bound_ms(t * RANK * 4 + used * d_out * RANK * 4
-                                   + t * d_out * 4, 2.0 * t * RANK * d_out,
+                bnd, by = bound_ms(t * rank * 4 + used * d_out * rank * 4
+                                   + t * d_out * 4, 2.0 * t * rank * d_out,
                                    "float32")
                 pad_used = int(torch.unique(bs).numel())
                 bnd_pad, _ = bound_ms(
-                    s.numel() * 4 + pad_used * d_out * RANK * 4 + nb * 4
+                    s.numel() * 4 + pad_used * d_out * rank * 4 + nb * 4
                     + s.shape[0] * d_out * 4,
-                    2.0 * s.shape[0] * RANK * d_out, "float32")
+                    2.0 * s.shape[0] * rank * d_out, "float32")
                 rows.append(dict(
-                    kernel="sgmv_expand", phase=phase, dtype=dname, T=t,
+                    kernel="sgmv_expand", model=model, phase=phase,
+                    dtype=dname, T=t, r=rank,
                     T_pad=s.shape[0], blk_t=blk_t, d=d_out, n_used=int(nu),
                     max_abs_err=e,
                     ms=cuda_ms(torch, lambda: sgmv.sgmv_expand(
@@ -347,36 +395,39 @@ def kernel_phase(torch, dev):
                     library_ms=cuda_ms(torch, lambda: torch.bmm(sb, b_t),
                                        flush),
                     bound_ms=bnd, bound_by=by, bound_padded_ms=bnd_pad))
-            for mod, (d_in, d_out) in MODULES.items():
+            for mod, (d_in, d_out) in spec["modules"].items():
                 x, a, b, slots, _, _, _ = inputs(t, d_in, d_out, dtype)
-                got = ops.sgmv(x, a, b, slots, 2.0, n_slots=R_POOL,
+                got = ops.sgmv(x, a, b, slots, 2.0, n_slots=r_pool,
                                blk_t=None)
                 want = (2.0 * ref.sgmv_ref(x, a.to(dtype), b.to(dtype),
                                            slots, 1.0)).to(dtype)
                 torch.cuda.synchronize()
                 e = err(got, want, dname)
                 def call():
-                    return ops.sgmv(x, a, b, slots, 2.0, n_slots=R_POOL,
+                    return ops.sgmv(x, a, b, slots, 2.0, n_slots=r_pool,
                                     blk_t=None)
                 rows.append(dict(
-                    kernel="ops.sgmv", phase=phase, dtype=dname, T=t,
+                    kernel="ops.sgmv", model=model, phase=phase,
+                    dtype=dname, T=t,
                     module=mod, d_in=d_in, d_out=d_out, max_abs_err=e,
                     ms=cuda_ms(torch, call, flush), wall_ms=host_ms(
                         torch, call), host_us=enqueue_us(torch, call,
                                                          iters=10)))
-            log(f"kernels {phase:7s} T={t:3d} {dname:8s} ok")
+            log(f"kernels {model} {phase:7s} T={t:3d} {dname:8s} ok")
     return rows
 
 
-def gather_phase(torch, dev):
+def gather_phase(torch, dev, spec):
     """``paged_gather_pages`` against its plain version at the paged
-    decode step's shape, bf16 and f32; timed beside the plain version,
-    ``torch.index_select`` and its bound."""
+    decode step's shape of ``spec``'s model, bf16 and f32; timed beside
+    the plain version, ``torch.index_select`` and its bound, with the
+    wrapper's host µs per call."""
     from repro_torch.kernels import paged_gather as pg
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    ng, bs, feat = N_LAYERS, KV_BLOCK, N_KV_HEADS * HEAD_DIM
+    _, kh, hd = spec["heads"]
+    ng, bs, feat = spec["layers"], KV_BLOCK, kh * hd
     b, mb = N_SLOTS, PAGES_PER_SEQ
     # rows 0-5: distinct shuffled pages for lengths of 1..17 pages, -1
     # past each row's length; row 6 repeats pages; row 7 is idle (all -1)
@@ -408,7 +459,8 @@ def gather_phase(torch, dev):
                   * got.element_size() + tables.numel() * 4)
         bnd, by = bound_ms(nbytes, 0.0, dname)
         rows.append(dict(
-            kernel="paged_gather_pages", dtype=dname, ng=ng,
+            kernel="paged_gather_pages", model=spec["model"], dtype=dname,
+            ng=ng,
             n_pages=N_PAGES, bs=bs, F=feat, B=b, MB=mb,
             distinct_pages=distinct, out_mb=got.numel()
             * got.element_size() / 1e6, max_abs_err=0.0,
@@ -418,6 +470,8 @@ def gather_phase(torch, dev):
                 arena, tables), flush),
             library_ms=cuda_ms(torch, lambda: torch.index_select(
                 arena, 1, idx), flush),
+            host_us=enqueue_us(torch, lambda: pg.paged_gather_pages(
+                arena, tables)),
             bound_ms=bnd, bound_by=by,
             # the read-and-write-everything figure (every table entry's
             # page read, repeats and -1 included)
@@ -428,9 +482,9 @@ def gather_phase(torch, dev):
     return rows
 
 
-def attention_phase(torch, dev):
+def attention_phase(torch, dev, spec, full=True):
     """``flash_decode`` and ``flash_prefill`` against their plain versions
-    at the main path's shapes, each timed beside its plain version, the
+    at the shapes of ``spec``'s model (below, Llama-3.1-8B's), each timed beside its plain version, the
     library call (``scaled_dot_product_attention`` with GQA; a yardstick
     only, the port never calls it) and its bound.
 
@@ -441,7 +495,8 @@ def attention_phase(torch, dev):
     group's layer ([8, 64, 32, 128] causal) in bf16 and f32, and a suffix
     step's (32 queries at positions 64..95 over 64 cached + 32 fresh
     keys) in bf16. Each row also carries the wrapper's host µs per call
-    (``enqueue_us``). Bounds count what these inputs need: K and V of
+    (``enqueue_us``). ``full=False`` runs the bf16 decode and full
+    prefill rows only. Bounds count what these inputs need: K and V of
     visible entries (only V of a row with no visible key, whose output
     is the mean of V), positions, q and out; 4·hd operations per visible
     (query head, key) pair."""
@@ -452,7 +507,7 @@ def attention_phase(torch, dev):
 
     gen = torch.Generator(device=dev).manual_seed(99)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    h, kh, hd, b, c = N_HEADS, N_KV_HEADS, HEAD_DIM, N_SLOTS, MAX_CTX
+    (h, kh, hd), b, c = spec["heads"], N_SLOTS, MAX_CTX
     g = h // kh
     rows = []
 
@@ -483,7 +538,7 @@ def attention_phase(torch, dev):
     n_vis = int(visible.sum())
     mask = visible[:, None, None, :]                       # SDPA's mask
     for dname, kvname in (("bfloat16", "bfloat16"), ("float32", "float32"),
-                          ("bfloat16", "int8")):
+                          ("bfloat16", "int8"))[:3 if full else 1]:
         dtype = getattr(torch, dname)
         q = randn(b, h, hd, dtype=dtype)
         if kvname == "int8":
@@ -520,7 +575,8 @@ def attention_phase(torch, dev):
         vsd = vf.to(dtype) if scales else v
         kl, vl = (x.transpose(1, 2).contiguous() for x in (ksd, vsd))
         rows.append(dict(
-            kernel="flash_decode", dtype=dname, kv_dtype=kvname,
+            kernel="flash_decode", model=spec["model"], dtype=dname,
+            kv_dtype=kvname,
             shape=f"q [{b},{h},{hd}] k,v [{b},{c},{kh},{hd}] {kvname}, "
                   f"[B] q_pos, one idle row", visible_entries=n_vis,
             max_abs_err=e, ms=cuda_ms(torch, lambda: da.flash_decode(
@@ -537,7 +593,8 @@ def attention_phase(torch, dev):
     # ---- flash_prefill --------------------------------------------------
     for label, sq, p0, dname in (("prefill", 64, 0, "bfloat16"),
                                  ("suffix", 32, 64, "bfloat16"),
-                                 ("prefill", 64, 0, "float32")):
+                                 ("prefill", 64, 0, "float32"))[
+                                     :3 if full else 1]:
         dtype = getattr(torch, dname)
         skv = p0 + sq
         q = randn(b, sq, h, hd, dtype=dtype)
@@ -564,7 +621,8 @@ def attention_phase(torch, dev):
                 return F.scaled_dot_product_attention(
                     ql, kl, vl, is_causal=True, enable_gqa=True)
         rows.append(dict(
-            kernel="flash_prefill", dtype=dname, case=label,
+            kernel="flash_prefill", model=spec["model"], dtype=dname,
+            case=label,
             shape=f"q [{b},{sq},{h},{hd}] k,v [{b},{skv},{kh},{hd}] {dname} "
                   f"causal, q positions {p0}..{skv - 1}",
             visible_pairs=pairs, max_abs_err=e,
@@ -578,6 +636,32 @@ def attention_phase(torch, dev):
             bound_ms=bnd, bound_by=by))
         log("flash_prefill " + json.dumps(rows[-1]))
     return rows
+
+
+def compare_logits(torch, where, kern, other, live, tol):
+    """Logits of the kernel route against another route's: within
+    ``tol`` of max|logit|, and top-1 equal on every live row where the
+    other route's top-2 margin exceeds that (there a flip is a fault,
+    not a tie broken the other way by rounding; bf16 logits tie exactly
+    at times). Returns the figures, agreement over all live rows
+    beside."""
+    check(bool(torch.isfinite(kern).all()), f"{where}: non-finite logits")
+    d = (kern - other).abs().max().item()
+    scale = other.abs().max().item()
+    top2 = other.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    agree = kern.argmax(-1) == other.argmax(-1)
+    clear = live & (margin > tol * scale)
+    res = dict(max_abs=d, max_logit=scale, tol=tol,
+               top1_agree_live=int(agree[live].sum()),
+               live_rows=int(live.sum()), clear_rows=int(clear.sum()),
+               top2_margins_live=margin[live].tolist())
+    log(f"{where}: " + json.dumps(res))
+    check(d <= tol * scale, f"{where}: logits differ by {d:.3e} > {tol} x "
+          f"{scale:.3e}")
+    check(bool(agree[clear].all()), f"{where}: top-1 differs on a live row "
+          f"whose top-2 margin exceeds {tol} x max|logit|")
+    return res
 
 
 def step_check_phase(torch, dev, shared):
@@ -620,29 +704,10 @@ def step_check_phase(torch, dev, shared):
             "decode": torch.arange(b, device=dev) < b - 1}
     res = {}
     for step in ("prefill", "decode"):
-        kern, plain = out[(step, True)], out[(step, False)]
-        d = (kern - plain).abs().max().item()
-        scale = plain.abs().max().item()
-        top2 = plain.topk(2, dim=-1).values
-        margin = top2[:, 0] - top2[:, 1]
-        agree = kern.argmax(-1) == plain.argmax(-1)
-        # rows where the plain route's top-2 margin exceeds the logit
-        # tolerance: there a flip is a fault, not a tie broken the other
-        # way by rounding (bf16 logits tie exactly at times)
-        clear = live[step] & (margin > ATTN_STEP_TOL * scale)
-        res[step] = dict(max_abs=d, max_logit=scale,
-                         top1_agree_live=int(agree[live[step]].sum()),
-                         live_rows=int(live[step].sum()),
-                         clear_rows=int(clear.sum()),
-                         top2_margins_live=margin[live[step]].tolist())
-        log(f"attn_kernel on vs off, full-depth bf16 {step}: "
-            + json.dumps(res[step]))
-        check(d <= ATTN_STEP_TOL * scale,
-              f"{step}: kernel vs plain attention logits differ by {d:.3e}"
-              f" > {ATTN_STEP_TOL} x {scale:.3e}")
-        check(bool(agree[clear].all()),
-              f"{step}: top-1 differs on a live row whose top-2 margin "
-              f"exceeds {ATTN_STEP_TOL} x max|logit|")
+        res[step] = compare_logits(
+            torch, f"attn_kernel on vs off, full-depth bf16 {step}",
+            out[(step, True)], out[(step, False)], live[step],
+            ATTN_STEP_TOL)
     del models, caches
     return res
 
@@ -801,19 +866,11 @@ def serve_phase(torch, dev, profile: bool):
         return logits.float()
 
     l_sgmv = decode_logits("sgmv")
-    l_ein = decode_logits("einsum")
-    d = (l_sgmv - l_ein).abs().max().item()
-    scale_l = l_ein.abs().max().item()
-    top2 = l_ein.topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > BACKEND_TOL * scale_l
-    agree = (l_sgmv.argmax(-1) == l_ein.argmax(-1))
-    log(f"backends on one decode step: max|sgmv-einsum| {d:.3e} "
-        f"(max|logit| {scale_l:.3e}); top-1 agree {int(agree.sum())}/"
-        f"{agree.numel()} rows")
-    check(d <= BACKEND_TOL * scale_l,
-          f"sgmv vs einsum logits differ by {d:.3e} > "
-          f"{BACKEND_TOL} x {scale_l:.3e}")
-    check(bool(agree[clear].all()), "top-1 disagrees on a clear row")
+    backends = compare_logits(
+        torch, "backends on one decode step, sgmv vs einsum", l_sgmv,
+        decode_logits("einsum"),
+        torch.ones(l_sgmv.shape[0], dtype=torch.bool, device=dev),
+        BACKEND_TOL)
 
     prof = None
     if profile:
@@ -839,8 +896,7 @@ def serve_phase(torch, dev, profile: bool):
                   path_launches=path_launches, launches_per_step=per_step,
                   init_s=init_s,
                   serve_s=serve_s, step_ms=step_ms, peak_gb=peak_gb,
-                  backend_max_abs=d, backend_max_logit=scale_l,
-                  top1_agree=int(agree.sum()), profile=prof)
+                  backends=backends, profile=prof)
     # what the later serves share: the config, the (rescaled) weights and
     # the adapters; the engine itself and its pool are freed on return
     shared = dict(cfg=cfg, params=engine.params,
@@ -871,24 +927,27 @@ def _reset_counts() -> None:
         mod.reset_launches()
 
 
-def _check_sgmv_launches(where, launches, step_calls):
+def _check_sgmv_launches(where, launches, step_calls, spec=LLAMA_SPEC):
     """Every LoRA module of every layer of every step call launches each
     SGMV kernel once."""
-    want = N_LAYERS * len(MODULES) * step_calls
+    layers, n_mod = spec["layers"], len(spec["modules"])
+    want = layers * n_mod * step_calls
     got = {k: launches[k] for k in ("sgmv_shrink", "sgmv_expand")}
     check(want > 0 and all(n == want for n in got.values()),
-          f"{where}: SGMV launches {got}, want {want} ({N_LAYERS} layers x "
-          f"{len(MODULES)} modules per step call over {step_calls} calls)")
+          f"{where}: SGMV launches {got}, want {want} ({layers} layers x "
+          f"{n_mod} modules per step call over {step_calls} calls)")
 
 
-def _check_attention_launches(where, launches, prefill_calls, decode_calls):
+def _check_attention_launches(where, launches, prefill_calls, decode_calls,
+                              spec=LLAMA_SPEC):
     """Every layer of every prefill / decode step call launches its
     attention kernel once."""
-    want = {"flash_prefill": N_LAYERS * prefill_calls,
-            "flash_decode": N_LAYERS * decode_calls}
+    layers = spec["layers"]
+    want = {"flash_prefill": layers * prefill_calls,
+            "flash_decode": layers * decode_calls}
     got = {k: launches[k] for k in want}
     check(got == want and min(want.values()) > 0,
-          f"{where}: attention launches {got}, want {want} ({N_LAYERS} per "
+          f"{where}: attention launches {got}, want {want} ({layers} per "
           f"step call over {prefill_calls} prefill and {decode_calls} "
           "decode step calls)")
 
@@ -1046,8 +1105,8 @@ def prefix_chunk_phase(torch, dev, shared):
     multi = set()
     run_chunk = engine._prefill_chunk
 
-    def chunked(bucket, start, width, group, now):
-        dt = run_chunk(bucket, start, width, group, now)
+    def chunked(bucket, merged, start, width, group, now):
+        dt = run_chunk(bucket, merged, start, width, group, now)
         multi.update(s.request.request_id for s in group
                      if s.request.prompt_len > start + width)
         return dt
@@ -1101,6 +1160,444 @@ def prefix_chunk_phase(torch, dev, shared):
     del engine
     _release(torch)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 7-9: qwen2-0.5b under every policy, tracing, an overcommitted
+# arena; full-width steps of qwen2-0.5b, llama3.2-3b and openelm-1.1b
+# ---------------------------------------------------------------------------
+
+# engine step attribute -> (phase, merged): merged steps run no LoRA
+STEP_KINDS = {
+    "_prefill": ("prefill", False), "_prefill_merged": ("prefill", True),
+    "_prefill_suffix": ("prefill", False),
+    "_prefill_suffix_merged": ("prefill", True),
+    "_prefill_sfx_dense": ("prefill", False),
+    "_prefill_sfx_dense_merged": ("prefill", True),
+    "_decode": ("decode", False), "_decode_merged": ("decode", True),
+    "_decode_paged": ("decode", False),
+    "_decode_merged_paged": ("decode", True)}
+# QKV bias drawn N(0, BIAS_STD^2) (the reference initialises it to zero,
+# which would leave it unexercised): about a tenth of a q, k or v entry
+BIAS_STD = 0.1
+
+
+def prepare_weights(torch, cfg, params, gen) -> None:
+    """In place: stacked weights rescaled from the reference init
+    (stddev 1/sqrt(n_groups)) to fan-in scale 1/sqrt(d_in), QKV biases
+    drawn nonzero, and a tied embedding rescaled to unit stddev (the
+    reference draws it at 1/sqrt(vocab), which through the tied head
+    gives logits of ~0.1 and top-2 ties everywhere)."""
+    with torch.no_grad():
+        for slot in params["layers"].values():
+            for module in slot.values():
+                for name, w in module.items():
+                    if w.dim() == 3:
+                        w.mul_((w.shape[0] / w.shape[-2]) ** 0.5)
+                    elif name in ("bq", "bk", "bv"):
+                        w.normal_(0.0, BIAS_STD, generator=gen)
+        if cfg.tie_embeddings:
+            params["embed"].mul_(cfg.vocab_size ** 0.5)
+
+
+def make_adapter_source(torch, dev, cfg):
+    """Adapters as deterministic functions of their id: A ~ N(0, 1/r) as
+    the reference draws it, B ~ N(0, B_STD^2) instead of zeros."""
+    from repro_torch.models.transformer import init_lora_stack
+
+    def source(aid: int):
+        gen = torch.Generator(device=dev).manual_seed(10_000 + aid)
+        tree = init_lora_stack(gen, cfg)
+        for mods in tree["layers"].values():
+            for pair in mods.values():
+                pair["B"].normal_(0.0, B_STD, generator=gen)
+        return tree
+    return source
+
+
+def _count_steps(torch, engine):
+    """Wrap every step function the engine has: each call appends (name,
+    host ms to a device sync, launches by kernel during the call)."""
+    calls = []
+    for name in STEP_KINDS:
+        fn = getattr(engine, name, None)
+        if fn is None:
+            continue
+
+        def run(*args, _fn=fn, _name=name, **kw):
+            before = _counts()
+            t = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+            after = _counts()
+            calls.append((_name, ms, {k: after[k] - before[k]
+                                      for k in after}))
+            return out
+        setattr(engine, name, run)
+    return calls
+
+
+def _check_step_launches(where, calls, spec, paged):
+    """Per step call: each SGMV kernel once per LoRA module and layer on
+    an unmerged step and never on a merged one; the step's attention
+    kernel once per layer; the page gather twice (k, v) per paged decode
+    step."""
+    layers, lora = spec["layers"], spec["layers"] * len(spec["modules"])
+    for name, _, got in calls:
+        phase, merged = STEP_KINDS[name]
+        want = {"sgmv_shrink": 0 if merged else lora,
+                "sgmv_expand": 0 if merged else lora,
+                "flash_prefill": layers if phase == "prefill" else 0,
+                "flash_decode": layers if phase == "decode" else 0,
+                "paged_gather_pages": (2 if phase == "decode" and paged
+                                       else 0)}
+        check(got == want, f"{where}: {name} launched {got}, want {want}")
+
+
+def qwen2_serve(torch, dev, where, engine, trace, spec):
+    """Serve ``trace``; hold every step call's launches, the outputs and
+    the launches outside step calls (none). Returns the record."""
+    from repro_torch.launch.serve import summary_row
+
+    calls = _count_steps(torch, engine)
+    _reset_counts()
+    t0 = time.perf_counter()
+    summary = engine.serve(trace)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = _counts()
+    vocab = engine.cfg.vocab_size
+    check(summary.n_completed == summary.n_requests == len(trace) > 0,
+          f"{where}: completed {summary.n_completed}/{summary.n_requests}")
+    for r in trace:
+        check(len(r.tokens) == r.generated == r.output_len
+              and all(0 <= t < vocab for t in r.tokens),
+              f"{where}: request {r.request_id}: bad output")
+    _check_step_launches(where, calls, spec, engine.paged)
+    check(all(launches[k] == sum(d[k] for _, _, d in calls)
+              for k in launches), f"{where}: launches outside step calls")
+    by = {}
+    for name, ms, _ in calls:
+        phase, merged = STEP_KINDS[name]
+        by.setdefault(f"{phase}{'_merged' if merged else ''}", []).append(ms)
+    row = summary_row(engine.ecfg.policy, engine.cfg.lora.n_adapters,
+                      summary)
+    log(f"{where}: {row}")
+    log(f"  {len(trace)} requests in {serve_s:.1f}s wall; step calls "
+        + ", ".join(f"{k} {len(v)} ({_mean(v):.1f} ms mean)"
+                    for k, v in sorted(by.items()))
+        + f"; launches {launches}")
+    return dict(summary=summary, launches=launches, serve_s=serve_s,
+                step_calls={k: len(v) for k, v in by.items()},
+                step_ms_mean={k: _mean(v) for k, v in by.items()},
+                unmerged_calls=sum(not STEP_KINDS[n][1] for n, _, _ in calls),
+                merged_calls=sum(STEP_KINDS[n][1] for n, _, _ in calls),
+                streams={r.request_id: list(r.tokens) for r in trace},
+                row=row)
+
+
+def _fields(summary, *drop):
+    import dataclasses
+    d = dataclasses.asdict(summary)
+    for k in drop:
+        d.pop(k)
+    return json.dumps(d, sort_keys=True, default=str)
+
+
+def _run_tool(args):
+    """Run one of the repo's tools in a child process; returns its
+    (exit code, stdout)."""
+    out = subprocess.run([sys.executable, *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        log(out.stdout[-2000:], out.stderr[-2000:])
+    return out.returncode, out.stdout + out.stderr
+
+
+# tools/trace_report.py imports its two helper modules from the JAX
+# package's serving package, whose __init__ imports the JAX engine; the
+# port keeps copies of both (jax-free, the same code). The tool file runs
+# unchanged, its two imports resolved to the port's copies.
+_TRACE_REPORT = """
+import runpy, sys, types
+sys.path[:0] = [{src!r}, {root!r}]
+from repro_torch.serving import metrics, trace
+for name in ("repro", "repro.serving"):
+    sys.modules[name] = types.ModuleType(name)
+sys.modules["repro.serving.metrics"] = metrics
+sys.modules["repro.serving.trace"] = trace
+sys.argv = ["tools/trace_report.py", {path!r}]
+runpy.run_path("tools/trace_report.py", run_name="__main__")
+"""
+
+
+def qwen2_phase(torch, dev):
+    """qwen2-0.5b at full width (bf16, 24 layers, d 896, 14/2 heads,
+    d_ff 4864, vocab 151936, QKV bias; LoRA rank 16 on all seven
+    modules), every serve under its own fake timer (``FakeTime``), so
+    two engines that run the same steps see the same step durations:
+
+    * ``edgelora``, ``llamacpp`` and ``dlora`` (a single-adapter trace,
+      which must run merged only, and an adapter-diverse one, which must
+      unmerge), each dense and paged: paged streams and summaries (but
+      for ``kv_stats``) equal the dense ones;
+    * ``edgelora`` dense with the tracer on: streams and summary (but
+      for the tracing-only latency breakdown) equal the untraced serve's;
+      the exported trace passes ``tools/trace_export.py`` (the schema
+      check) and reads back through ``tools/trace_report.py``;
+    * ``edgelora`` paged on an overcommitted arena (24 pages, a seventh
+      of dense capacity) with the prefix cache: deferrals or preemptions
+      and copy-on-write pages, streams equal to a dense serve's.
+
+    Every step call's launches are held (``_check_step_launches``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
+    from repro_torch.serving.trace import EngineTracer
+    from repro_torch.serving.workload import WorkloadConfig, generate_trace
+
+    spec = QWEN_SPEC
+    cfg = get_config("qwen2-0.5b")
+    n_adapters = 2 * cfg.lora.max_resident          # misses force swap-ins
+    cfg = dataclasses.replace(
+        cfg, lora=dataclasses.replace(cfg.lora, n_adapters=n_adapters))
+    check(cfg.n_layers == spec["layers"] and cfg.d_model == 896
+          and cfg.dtype == "bfloat16" and cfg.attn.qkv_bias
+          and cfg.tie_embeddings and cfg.lora.rank == spec["rank"]
+          and set(cfg.lora.target_modules) == set(spec["modules"]),
+          "not the full qwen2-0.5b config")
+    # llamacpp preloads every adapter: the adapter count is chosen so that
+    # they fit the engine's default memory_budget (64 x 17.6 MB = 1.1 GB
+    # of 6 GB), so the OOM check passes as it would on the device
+    budget = EngineConfig().memory_budget
+    adapter_mb = cfg.lora_adapter_bytes() / 1e6
+    check(n_adapters * cfg.lora_adapter_bytes() <= budget,
+          f"{n_adapters} adapters of {adapter_mb:.1f} MB exceed {budget}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build_model(cfg, dev).init(gen)
+    prepare_weights(torch, cfg, params, gen)
+    source = make_adapter_source(torch, dev, cfg)
+    log(f"qwen2-0.5b: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f}"
+        f"B params, adapters of {adapter_mb:.1f} MB, {n_adapters} adapters")
+
+    def engine(policy, kv, tracer=None, **kw):
+        ecfg = EngineConfig(n_slots=N_SLOTS, top_k=1, policy=policy,
+                            max_ctx=MAX_CTX, prompt_buckets=(32, 64),
+                            lora_backend="auto", kv_backend=kv,
+                            kv_block_size=KV_BLOCK, seed=0, **kw)
+        eng = EdgeLoRAEngine(cfg, ecfg, params=params, tracer=tracer,
+                             device=dev, adapter_source=source,
+                             timer=FakeTime())
+        check(eng.lora_backend == "sgmv" and eng.attn_kernel
+              and (eng.kv_gather_kernel or kv == "dense"),
+              f"{policy}/{kv}: kernels not resolved on CUDA")
+        return eng
+
+    # bursts of ~10 requests within 50 ms of virtual time (10 fake steps)
+    burst = WorkloadConfig(n_adapters=n_adapters, request_rate=200.0,
+                           duration=0.05, input_range=(8, 64),
+                           output_range=(4, 16), vocab_size=cfg.vocab_size,
+                           seed=3)
+    traces = {"mixed": burst,
+              "single": dataclasses.replace(burst, n_adapters=1, seed=4),
+              "diverse": dataclasses.replace(burst, alpha=0.0, seed=5)}
+    out = {"adapter_mb": adapter_mb, "n_adapters": n_adapters}
+    for policy, wl in (("edgelora", "mixed"), ("llamacpp", "mixed"),
+                       ("dlora", "single"), ("dlora", "diverse")):
+        runs = {}
+        for kv in ("dense", "paged"):
+            where = f"qwen2-0.5b {policy} {wl} {kv}"
+            eng = engine(policy, kv)
+            runs[kv] = qwen2_serve(torch, dev, where, eng,
+                                   generate_trace(traces[wl]), spec)
+            del eng
+            _release(torch)
+        same = sum(runs["dense"]["streams"][k] == v
+                   for k, v in runs["paged"]["streams"].items())
+        log(f"  {policy} {wl}: dense vs paged streams {same}/"
+            f"{len(runs['dense']['streams'])} equal")
+        check(runs["dense"]["streams"] == runs["paged"]["streams"],
+              f"{policy} {wl}: dense and paged streams differ")
+        check(_fields(runs["dense"]["summary"], "kv_stats")
+              == _fields(runs["paged"]["summary"], "kv_stats"),
+              f"{policy} {wl}: dense and paged summaries differ")
+        for kv, r in runs.items():
+            s = r["summary"]
+            if policy == "llamacpp" or wl == "single":
+                check(r["unmerged_calls"] == 0 and r["merged_calls"] > 0
+                      and r["launches"]["sgmv_shrink"] == 0,
+                      f"{policy} {wl} {kv}: unmerged steps ran")
+            else:
+                check(r["unmerged_calls"] > 0, f"{policy} {wl} {kv}: no "
+                      "unmerged step")
+            if wl == "single":
+                check(s.adapter_loads <= cfg.lora.max_resident,
+                      f"dlora single {kv}: {s.adapter_loads} loads")
+            if wl == "diverse":
+                check(s.adapter_loads > 0, f"dlora diverse {kv}: no load")
+            r["summary"] = dataclasses.asdict(s)
+        out[f"{policy}_{wl}"] = runs
+
+    # ---- tracing: on vs off on the same serve -------------------------
+    tracer = EngineTracer()
+    eng = engine("edgelora", "dense", tracer=tracer)
+    traced = qwen2_serve(torch, dev, "qwen2-0.5b edgelora traced", eng,
+                         generate_trace(burst), spec)
+    del eng
+    _release(torch)
+    untraced = out["edgelora_mixed"]["dense"]
+    check(traced["streams"] == untraced["streams"],
+          "tracer on vs off: streams differ")
+    check(traced["summary"].latency_breakdown is not None
+          and _fields(traced["summary"], "latency_breakdown")
+          == json.dumps({k: v for k, v in untraced["summary"].items()
+                         if k != "latency_breakdown"}, sort_keys=True,
+                        default=str),
+          "tracer on vs off: summaries differ")
+    check(tracer.watchdog_report["ok"], f"watchdog: {tracer.watchdog_report}")
+    path = ROOT / "chiprun_out" / "qwen2_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    tracer.export(path)
+    rc_export, text_export = _run_tool(["tools/trace_export.py", str(path)])
+    rc_report, text_report = _run_tool(["-c", _TRACE_REPORT.format(
+        src=str(SRC), root=str(ROOT), path=str(path))])
+    check(rc_export == 0, "tools/trace_export.py rejected the trace")
+    check(rc_report == 0 and "# trace: policy=edgelora" in text_report
+          and "VIOLATION" not in text_report,
+          "tools/trace_report.py could not read the trace")
+    log(text_export.strip())
+    log("\n".join(text_report.strip().splitlines()[:12]))
+    traced["summary"] = dataclasses.asdict(traced["summary"])
+    traced["summary"].pop("latency_breakdown")
+    out["traced"] = dict(traced, events=len(tracer.events),
+                         trace_file=str(path.relative_to(ROOT)),
+                         trace_report=text_report)
+
+    # ---- overcommitted arena with the prefix cache --------------------
+    # 4 tenants' 32-token system prompts; every third request that opens
+    # with one sends only it (a block-aligned whole-prompt match: the
+    # last prompt token is re-prefilled into a copy-on-write page)
+    sys_len = 32
+    tight = WorkloadConfig(n_adapters=4, request_rate=200.0, duration=0.08,
+                           input_range=(8, 64), output_range=(8, 32),
+                           system_prompt_len=sys_len,
+                           vocab_size=cfg.vocab_size, seed=6)
+
+    def tight_trace():
+        trace = generate_trace(tight)
+        opened = [r for r in trace if r.prompt_len > sys_len]
+        for r in opened[1::3]:
+            r.prompt_tokens = np.asarray(r.prompt_tokens)[:sys_len]
+            r.prompt_len = sys_len
+        return trace
+
+    runs = {}
+    for kv, kw in (("dense", {}),
+                   ("paged", dict(kv_arena_blocks=24, prefix_cache=True))):
+        eng = engine("edgelora", kv, **kw)
+        runs[kv] = qwen2_serve(torch, dev, f"qwen2-0.5b overcommitted {kv}",
+                               eng, tight_trace(), spec)
+        del eng
+        _release(torch)
+    kv_stats = runs["paged"]["summary"].kv_stats
+    ps = runs["paged"]["summary"].prefix_stats
+    log(f"  overcommitted arena: kv {kv_stats}; prefix {ps}")
+    check(kv_stats["deferrals"] + kv_stats["preemptions"] > 0,
+          f"overcommitted arena neither deferred nor preempted: {kv_stats}")
+    check(ps["cow_copies"] > 0 and ps["hit_requests"] > 0,
+          f"no copy-on-write or prefix hit: {ps}")
+    check(runs["dense"]["streams"] == runs["paged"]["streams"],
+          "overcommitted paged vs dense streams differ")
+    for r in runs.values():
+        r["summary"] = dataclasses.asdict(r["summary"])
+    out["overcommitted"] = runs
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# routes of the full-width step check: (attention kernels, LoRA backend)
+ROUTES = {"kernels": (True, "sgmv"), "plain_attention": (False, "sgmv"),
+          "einsum_lora": (True, "einsum"), "plain": (False, "einsum")}
+# bf16 logits of the kernel route against each other route, as a share of
+# max|logit|: attention kernels vs plain attention and sgmv vs einsum each
+# within ATTN_STEP_TOL / BACKEND_TOL (both 5e-2, see above); against the
+# fully plain route, which differs in both, their sum
+ROUTE_TOL = {"plain_attention": ATTN_STEP_TOL, "einsum_lora": BACKEND_TOL,
+             "plain": ATTN_STEP_TOL + BACKEND_TOL}
+
+
+def route_check_phase(torch, dev, arch):
+    """One full-width bf16 prefill (8 rows x 64, right-padded lengths,
+    8 rows with different adapters from an 8-slot pool, B nonzero) and one
+    decode step (from the kernel route's cache, one idle row) of
+    ``arch`` on each route of ``ROUTES``: logits within ``ROUTE_TOL`` of
+    max|logit| of the kernel route's, top-1 equal on every live row whose
+    top-2 margin exceeds the tolerance; the agreement over all live rows
+    is reported beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import LoRAMode
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    models = {on: build_model(cfg, dev, attn_kernel=on)
+              for on in (True, False)}
+    params = models[True].init(gen)
+    prepare_weights(torch, cfg, params, gen)
+    pool = models[True].init_lora(gen, n_slots=N_SLOTS)
+    for mods in pool["layers"].values():
+        for pair in mods.values():
+            pair["B"].normal_(0.0, B_STD, generator=gen)
+    b, s = N_SLOTS, 64
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev, dtype=torch.int32)
+    lengths = torch.tensor([64, 60, 50, 40, 33, 20, 9, 64],
+                           dtype=torch.int32, device=dev)
+    sids = torch.arange(b, dtype=torch.int32, device=dev)
+    out, cache0 = {}, None
+    with torch.no_grad():
+        for route, (on, backend) in ROUTES.items():
+            m = models[on]
+            mode = LoRAMode("batched", sids, cfg.lora.scale, backend)
+            logits, cache = m.prefill(params, {"tokens": tokens},
+                                      m.init_cache(b, MAX_CTX), pool, mode,
+                                      lengths=lengths)
+            out[("prefill", route)] = logits.float()
+            if route == "kernels":
+                cache0 = cache
+        nxt = out[("prefill", "kernels")].argmax(-1).int()
+        pos = lengths.clone()
+        nxt[-1], pos[-1] = 0, 0
+        for route, (on, backend) in ROUTES.items():
+            cache = {k: {n: v.clone() for n, v in c.items()}
+                     for k, c in cache0.items()}
+            mode = LoRAMode("batched", sids, cfg.lora.scale, backend)
+            logits, _ = models[on].decode_step(params, nxt, cache, pos,
+                                               pool, mode)
+            out[("decode", route)] = logits.float()
+    torch.cuda.synchronize()
+    live = {"prefill": torch.ones(b, dtype=torch.bool, device=dev),
+            "decode": torch.arange(b, device=dev) < b - 1}
+    res = {}
+    for step in ("prefill", "decode"):
+        for route, tol in ROUTE_TOL.items():
+            res[f"{step}_vs_{route}"] = compare_logits(
+                torch, f"{arch} full-width bf16 {step}, kernels vs {route}",
+                out[(step, "kernels")], out[(step, route)], live[step], tol)
+    del models, params, pool, cache0, out
+    return res
 
 
 def profile_decode(torch, decode, engine, captured, label: str,
@@ -1225,11 +1722,16 @@ def main(argv=None) -> int:
 
     # ---- 3. kernels -----------------------------------------------------
     t0 = time.perf_counter()
-    rows = kernel_phase(torch, dev)
+    rows = kernel_phase(torch, dev, LLAMA_SPEC)
     for r in rows:
         log("  " + json.dumps(r))
-    gather_rows = gather_phase(torch, dev)
-    attention = attention_phase(torch, dev)
+    gather_rows = gather_phase(torch, dev, LLAMA_SPEC)
+    attention = attention_phase(torch, dev, LLAMA_SPEC)
+    q_rows = kernel_phase(torch, dev, QWEN_SPEC)
+    for r in q_rows:
+        log("  " + json.dumps(r))
+    q_gather = gather_phase(torch, dev, QWEN_SPEC)
+    q_attention = attention_phase(torch, dev, QWEN_SPEC, full=False)
     log(f"kernel phase {time.perf_counter() - t0:.1f}s")
 
     # ---- 4. serve -------------------------------------------------------
@@ -1243,52 +1745,84 @@ def main(argv=None) -> int:
     paged = paged_compare_phase(torch, dev, shared)
     prefix = prefix_chunk_phase(torch, dev, shared)
     log(f"paged phases {time.perf_counter() - t0:.1f}s")
+    del shared
+    _release(torch)
 
-    def pick(kernel):
-        """The main path's decode shape: 8 bf16 rows, 4096 wide."""
-        return next(r for r in rows if r["kernel"] == kernel
+    # ---- 7-9. qwen2-0.5b policies and tracing; full-width steps ---------
+    t0 = time.perf_counter()
+    qwen2 = qwen2_phase(torch, dev)
+    _release(torch)
+    log(f"qwen2-0.5b serves {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    routes = {}
+    for arch in ("qwen2-0.5b", "llama3.2-3b", "openelm-1.1b"):
+        routes[arch] = route_check_phase(torch, dev, arch)
+        _release(torch)
+    log(f"full-width route checks {time.perf_counter() - t0:.1f}s")
+
+    # launches over every serve, the main path's and each later one's
+    serves = {"dense": serve["launches"],
+              "paged_compare_dense": paged["dense"]["launches"],
+              "paged_compare_paged": paged["paged"]["launches"],
+              "prefix_chunk": prefix["launches"],
+              "qwen2_traced": qwen2["traced"]["launches"]}
+    for key, runs in qwen2.items():
+        if isinstance(runs, dict) and "dense" in runs:
+            for kv, run in runs.items():
+                serves[f"qwen2_{key}_{kv}"] = run["launches"]
+
+    def pick(kernel, table, d):
+        """A model's decode shape: 8 bf16 rows, ``d`` wide."""
+        return next(r for r in table if r["kernel"] == kernel
                     and r["phase"] == "decode" and r["dtype"] == "bfloat16"
-                    and r["d"] == 4096)
+                    and r["d"] == d)
 
-    sources = {"sgmv_shrink": "src/repro/kernels/sgmv.py:62",
-               "sgmv_expand": "src/repro/kernels/sgmv.py:98"}
+    def timing(r, shape):
+        return dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r["library_ms"], host_us=r.get("host_us"),
+                    shape=shape)
+
+    def sgmv_shape(r, spec):
+        return (f"{spec['model']} decode T={r['T']} (T_pad={r['T_pad']}) "
+                f"d={r['d']} r={spec['rank']} R={spec['r_pool']} "
+                f"{r['dtype']} x, f32 pool")
+
+    sources = {"sgmv_shrink": ("src/repro/kernels/sgmv.py:62", 4096, 896),
+               "sgmv_expand": ("src/repro/kernels/sgmv.py:98", 4096, 896)}
     kernels = []
-    for name, replaces in sources.items():
-        r = pick(name)
+    for name, (replaces, d, qd) in sources.items():
+        r = pick(name, rows, d)
+        qr = pick(name, q_rows, qd)
+        by_serve = {k: v[name] for k, v in serves.items()}
         kernels.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/sgmv.cu", replaces=replaces,
-            launches=serve["launches"][name],
+            launches=sum(by_serve.values()), launches_by_serve=by_serve,
             launches_prefill=serve["path_launches"]["prefill"][name],
             launches_decode=serve["path_launches"]["decode"][name],
-            max_abs_err=max(x["max_abs_err"] for x in rows
+            max_abs_err=max(x["max_abs_err"] for x in rows + q_rows
                             if x["kernel"] == name),
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"],
-            bound_padded_ms=r["bound_padded_ms"], host_us=r["host_us"],
-            shape=f"decode T={r['T']} (T_pad={r['T_pad']}) d={r['d']} "
-                  f"r={RANK} R={R_POOL} {r['dtype']} x, f32 pool"))
+            **timing(r, sgmv_shape(r, LLAMA_SPEC)),
+            bound_padded_ms=r["bound_padded_ms"],
+            qwen2_0_5b=timing(qr, sgmv_shape(qr, QWEN_SPEC))))
     g = next(r for r in gather_rows if r["dtype"] == "bfloat16")
-    gather_launches = {"paged_compare": paged["paged"]["launches"][
-        "paged_gather_pages"], "prefix_chunk": prefix["launches"][
-        "paged_gather_pages"]}
+    qg = next(r for r in q_gather if r["dtype"] == "bfloat16")
+
+    def gather_shape(g):
+        return (f"{g['model']} ng={g['ng']} n_pages={g['n_pages']} "
+                f"bs={g['bs']} F={g['F']} B={g['B']} MB={g['MB']} bf16")
+
+    by_serve = {k: v["paged_gather_pages"] for k, v in serves.items()}
     kernels.append(dict(
         name="paged_gather_pages", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_gather.cu",
         replaces="src/repro/kernels/paged_gather.py:31",
-        launches=sum(gather_launches.values()),
-        launches_by_serve=gather_launches,
-        max_abs_err=max(r["max_abs_err"] for r in gather_rows),
-        ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
-        bound_by=g["bound_by"], library_ms=g["library_ms"],
-        shape=f"ng={g['ng']} n_pages={g['n_pages']} bs={g['bs']} "
-              f"F={g['F']} B={g['B']} MB={g['MB']} bf16"))
-    # the attention kernels: launches over every serve, times at the main
-    # path's bf16 shape (decode step; full prefill group)
-    serves = {"dense": serve["launches"],
-              "paged_compare_dense": paged["dense"]["launches"],
-              "paged_compare_paged": paged["paged"]["launches"],
-              "prefix_chunk": prefix["launches"]}
+        launches=sum(by_serve.values()), launches_by_serve=by_serve,
+        max_abs_err=max(r["max_abs_err"] for r in gather_rows + q_gather),
+        **timing(g, gather_shape(g)), qwen2_0_5b=timing(qg, gather_shape(qg))))
+    # the attention kernels: times at each model's bf16 shape (decode
+    # step; full prefill group)
     for name, src, replaces, pick_row in (
             ("flash_decode", "decode_attention.cu",
              "src/repro/kernels/decode_attention.py:85",
@@ -1297,17 +1831,18 @@ def main(argv=None) -> int:
              "src/repro/kernels/flash_prefill.py:82",
              lambda r: r["case"] == "prefill"
              and r["dtype"] == "bfloat16")):
-        mine = [r for r in attention if r["kernel"] == name]
-        r = next(x for x in mine if pick_row(x))
+        mine = [r for r in attention + q_attention if r["kernel"] == name]
+        r = next(x for x in mine if pick_row(x)
+                 and x["model"] == "llama3.1-8b")
+        qr = next(x for x in mine if pick_row(x)
+                  and x["model"] == "qwen2-0.5b")
         by_serve = {k: v[name] for k, v in serves.items()}
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
             launches=sum(by_serve.values()), launches_by_serve=by_serve,
             max_abs_err=max(x["max_abs_err"] for x in mine),
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"],
-            host_us=r["host_us"], shape=r["shape"]))
+            **timing(r, r["shape"]), qwen2_0_5b=timing(qr, qr["shape"])))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -1316,6 +1851,9 @@ def main(argv=None) -> int:
              attention_rows=attention, step_check=step_check,
              serve=serve,
              paged_compare=paged, prefix_chunk=prefix,
+             qwen2_kernel_rows=q_rows, qwen2_gather_rows=q_gather,
+             qwen2_attention_rows=q_attention, qwen2=qwen2,
+             route_checks=routes,
              seconds=time.perf_counter() - t_start), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

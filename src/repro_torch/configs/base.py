@@ -349,7 +349,7 @@ _ALIAS.update({
 
 # Architectures the PyTorch port runs so far (one module each under
 # repro_torch/configs/); every other arch id raises until its slice lands.
-PORTED_ARCHS = ("llama3_8b",)
+PORTED_ARCHS = ("llama3_8b", "qwen2_0_5b", "llama3_2_3b", "openelm_1_1b")
 
 
 def get_config(arch: str) -> ModelConfig:

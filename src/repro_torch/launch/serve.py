@@ -6,16 +6,20 @@ synthetic workload (``repro.launch.serve`` with ``--device``).
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --prefix-cache --system-prompt-len 16 --prefill-chunk 16 \\
         --n-adapters 4 --rate 3 --duration 2 --max-ctx 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch qwen2-0.5b --policy dlora --trace out.json
     PYTHONPATH=src python -m repro_torch.launch.serve --full   # on a GPU
 
 Runs on ``cuda`` unless ``--device cpu`` is given (no CUDA: it raises).
 ``--reduced`` (the default) is the tiny same-family variant; ``--full``
-the published Llama-3.1-8B widths. The flags are the reference's:
-``--kv-backend paged``, ``--prefix-cache`` (which implies the paged
-backend) and ``--prefill-chunk`` serve as there, and the summary row
-carries their ``kv=`` and ``prefix=`` digests. Those of features outside
-the ported slices (the llamacpp and dlora policies, ``--trace``) raise
-``NotImplementedError``.
+the published widths of ``--arch`` (llama3-8b, qwen2-0.5b, llama3.2-3b,
+openelm-1.1b). The flags are the reference's: all four ``--policy``
+values, ``--kv-backend paged``, ``--prefix-cache`` (which implies the
+paged backend) and ``--prefill-chunk`` serve as there, and the summary
+row carries their ``kv=`` and ``prefix=`` digests. ``--trace PATH``
+writes the engine trace (Perfetto JSON with the raw ``edgelora``
+section that ``tools/trace_report.py`` reads); a llamacpp adapter set
+over ``--memory-budget`` prints ``OOM: ...`` and exits 2.
 """
 from __future__ import annotations
 
@@ -25,7 +29,9 @@ import json
 import sys
 
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
+from repro_torch.serving.engine import (EdgeLoRAEngine, EngineConfig,
+                                        OutOfMemoryError)
+from repro_torch.serving.trace import EngineTracer
 from repro_torch.serving.workload import WorkloadConfig, generate_trace
 
 
@@ -84,10 +90,6 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
-    if args.trace:
-        raise NotImplementedError(
-            "--trace is not yet ported to repro_torch (slice: remaining "
-            "engine policies and tracing)")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -125,8 +127,19 @@ def main(argv=None) -> int:
         disk_bandwidth=args.disk_bandwidth,
         prefill_batching=args.prefill_batching,
         router_batching=args.router_batching, seed=args.seed)
-    engine = EdgeLoRAEngine(cfg, ecfg, device=args.device)
+    tracer = EngineTracer() if args.trace else None
+    try:
+        engine = EdgeLoRAEngine(cfg, ecfg, tracer=tracer,
+                                device=args.device)
+    except OutOfMemoryError as e:
+        print(f"OOM: {e}")
+        return 2
     summary = engine.serve(trace)
+    if tracer is not None:
+        tracer.export(args.trace)
+        print(f"# trace written to {args.trace} "
+              f"({len(tracer.events)} events; open in ui.perfetto.dev "
+              f"or inspect with tools/trace_report.py)", file=sys.stderr)
     print(f"# lora_backend={engine.lora_backend} "
           f"kv_backend={engine.kv_backend} device={engine.device} "
           f"attn_kernel={engine.attn_kernel}", file=sys.stderr)

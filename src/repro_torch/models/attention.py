@@ -1,5 +1,5 @@
-"""Attention, dense-global subset: GQA + RoPE + blockwise prefill + cached
-decode (``repro.models.attention``).
+"""Attention, dense-global subset: GQA + RoPE (+ QKV bias) + blockwise
+prefill + cached decode (``repro.models.attention``).
 
 * Full-sequence attention is computed **blockwise with an online
   softmax** in plain PyTorch: the same query/KV block order and f32
@@ -27,7 +27,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import LoRAMode
 from repro_torch.kernels import ops
-from repro_torch.models.layers import linear, truncated_normal_init
+from repro_torch.models.layers import (init_device, linear,
+                                      truncated_normal_init)
 
 NEG_INF = -1e30
 
@@ -68,12 +69,17 @@ def attention_init(generator: Optional[torch.Generator], cfg: ModelConfig, *,
                    stack: Tuple[int, ...] = (),
                    dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     d, qs, kvs = cfg.d_model, cfg.q_size, cfg.kv_size
-    return {
+    p = {
         "wq": truncated_normal_init(generator, (*stack, d, qs), 1.0, dtype),
         "wk": truncated_normal_init(generator, (*stack, d, kvs), 1.0, dtype),
         "wv": truncated_normal_init(generator, (*stack, d, kvs), 1.0, dtype),
         "wo": truncated_normal_init(generator, (*stack, qs, d), 1.0, dtype),
     }
+    if cfg.attn.qkv_bias:  # zero at init, as in the reference
+        dev = init_device(generator)
+        for name, size in (("bq", qs), ("bk", kvs), ("bv", kvs)):
+            p[name] = torch.zeros((*stack, size), dtype=dtype, device=dev)
+    return p
 
 
 def project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -84,13 +90,16 @@ def project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     hd = cfg.resolved_head_dim
     lget = (lora or {}).get
 
-    def proj(name: str, w: torch.Tensor, nheads: int) -> torch.Tensor:
-        return linear({"w": w}, x, lget(name), lora_mode).reshape(
-            b, s, nheads, hd)
+    def proj(name: str, w: torch.Tensor, bias: Optional[torch.Tensor],
+             nheads: int) -> torch.Tensor:
+        pr = {"w": w}
+        if bias is not None:  # x·W + b, then the LoRA delta
+            pr["b"] = bias
+        return linear(pr, x, lget(name), lora_mode).reshape(b, s, nheads, hd)
 
-    q = proj("q", params["wq"], cfg.n_heads)
-    k = proj("k", params["wk"], cfg.n_kv_heads)
-    v = proj("v", params["wv"], cfg.n_kv_heads)
+    q = proj("q", params["wq"], params.get("bq"), cfg.n_heads)
+    k = proj("k", params["wk"], params.get("bk"), cfg.n_kv_heads)
+    v = proj("v", params["wv"], params.get("bv"), cfg.n_kv_heads)
     if cfg.attn.rope:
         q = apply_rope(q, positions, cfg.attn.rope_theta)
         k = apply_rope(k, positions, cfg.attn.rope_theta)

@@ -30,14 +30,14 @@ from repro_torch.models.layers import (init_device, rmsnorm,
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for config features outside the ported slice (dense global
-    attention, gated MLP, RMSNorm, RoPE, LoRA): nothing degrades
-    silently."""
+    """Raise for config features outside the ported slices (dense global
+    attention with optional QKV bias, gated MLP, RMSNorm, RoPE, LoRA,
+    tied or untied embeddings): nothing degrades silently."""
     a = cfg.attn
     unported = {
         "family != 'dense'": cfg.family != "dense",
         "non-global layers": any(k != "global" for k in a.layer_pattern),
-        "qkv_bias": a.qkv_bias, "qk_norm": a.qk_norm,
+        "qk_norm": a.qk_norm,
         "attn_logit_softcap": a.attn_logit_softcap is not None,
         "kv_cache_quant": a.kv_cache_quant, "rope=False": not a.rope,
         "final_logit_softcap": cfg.final_logit_softcap is not None,

@@ -37,10 +37,29 @@ only the suffix; ``prefill_chunk`` bounds every prefill call to that
 many prompt tokens on either backend, interleaving chunks with decode
 steps. Both run through the same suffix-prefill steps.
 
-This port serves the ``edgelora`` and ``edgelora_no_aas`` policies with
-every KV feature above. The ``llamacpp`` and ``dlora`` policies and
-tracing raise ``NotImplementedError`` at engine init (later slices, see
-ROADMAP.md).
+Scheduler policies, all four of the reference's, on every KV feature
+above:
+
+* ``edgelora``          — adaptive adapter selection on
+* ``edgelora_no_aas``   — adapters pinned by the request
+* ``llamacpp``          — baseline: every adapter preloaded (checked
+  against ``memory_budget``: ``OutOfMemoryError``), one active adapter
+  at a time, merged into W; a switch drains the batch and charges the
+  unmerge and merge at ``mem_bandwidth``
+* ``dlora``             — switches between MERGED execution (the hot
+  adapter folded into W, same-adapter batching only) and UNMERGED
+  batched execution, driven by the adapter diversity of the upcoming
+  queue (``dlora_window``, ``dlora_merge_uniques``)
+
+A merged step runs the base model with no LoRA at all (the adapter is
+taken to be folded into W): no SGMV kernel runs, the attention kernels
+and the page gather do.
+
+Tracing is opt-in (``tracer=``, ``serving/trace.py``): every site guards
+on ``tracer is not None``, so an untraced engine runs exactly as if the
+hooks were absent, and a traced one adds no device sync and no host read
+of device data. Events, names and virtual timestamps are the
+reference's.
 """
 from __future__ import annotations
 
@@ -67,6 +86,13 @@ from repro_torch.serving import kvpool as kvlib
 from repro_torch.serving.kvpool import PagedKVPool
 from repro_torch.serving.metrics import ServingSummary, summarize
 from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.trace import (EngineTracer, JitRecompileError,
+                                       jit_cache_report)
+
+
+class OutOfMemoryError(RuntimeError):
+    """Adapter working set exceeds the device memory budget (the paper's
+    OOM cells in Tables 4-6)."""
 
 
 @dataclass
@@ -81,8 +107,7 @@ class EngineConfig:
     ``flash_prefill`` / ``flash_decode`` kernels on CUDA and the plain
     code on the CPU; ``True`` on the CPU routes through the kernel
     wrappers, which run their plain versions; ``False`` runs plain
-    attention. ``dlora_*`` and ``memory_budget`` belong to the policies
-    not yet ported."""
+    attention."""
 
     n_slots: int = 8
     top_k: int = 3
@@ -114,23 +139,16 @@ class EngineConfig:
     seed: int = 0
 
 
-_PORTED_POLICIES = ("edgelora", "edgelora_no_aas")
+POLICIES = ("edgelora", "edgelora_no_aas", "llamacpp", "dlora")
 
 
-def _check_slice(cfg: ModelConfig, ecfg: EngineConfig, tracer: Any) -> str:
-    """Raise for engine features outside the ported slices (the
-    ``llamacpp`` and ``dlora`` policies, tracing); returns the KV backend
-    ('dense' or 'paged')."""
-    if ecfg.policy not in _PORTED_POLICIES:
-        if ecfg.policy in ("llamacpp", "dlora"):
-            raise NotImplementedError(
-                f"policy {ecfg.policy!r} is not yet ported to repro_torch "
-                "(slice: remaining engine policies and tracing)")
-        raise ValueError(f"unknown policy {ecfg.policy!r}")
-    if tracer is not None:
-        raise NotImplementedError(
-            "tracer is not yet ported to repro_torch (slice: remaining "
-            "engine policies and tracing)")
+def _check_engine_config(cfg: ModelConfig, ecfg: EngineConfig) -> str:
+    """Validate the policy and the KV backend; returns the KV backend
+    ('dense' or 'paged'). Model features outside the ported slices raise
+    in ``models.model.check_supported``."""
+    if ecfg.policy not in POLICIES:
+        raise ValueError(f"unknown policy {ecfg.policy!r} (expected one "
+                         f"of {', '.join(POLICIES)})")
     kv_backend = ecfg.kv_backend or cfg.kv_backend
     if kv_backend not in ("dense", "paged"):
         raise ValueError(f"unknown kv_backend {kv_backend!r} "
@@ -142,17 +160,30 @@ class EdgeLoRAEngine:
     """``adapter_source(adapter_id)`` returns one adapter as the LoRA tree
     of ``Model.init_lora(generator)`` (leaves ``[ng, r, d]``); the default
     draws it on the engine's device. ``timer`` supplies ``perf_counter``
-    to ``_timed`` (default: the ``time`` module)."""
+    to ``_timed`` (default: the ``time`` module). ``tracer`` (an
+    ``EngineTracer``, one per serve) records the run."""
 
     def __init__(self, cfg: ModelConfig, engine_cfg: EngineConfig,
                  router: Any = None, params: Any = None,
-                 tracer: Any = None, *, device: DeviceLike = "cuda",
+                 tracer: Optional[EngineTracer] = None, *,
+                 device: DeviceLike = "cuda",
                  adapter_source: Optional[Callable[[int], Any]] = None,
                  timer: Any = None) -> None:
         self.cfg = cfg
         self.ecfg = engine_cfg
-        self.kv_backend = _check_slice(cfg, engine_cfg, tracer)
+        self.tracer = tracer
+        self.kv_backend = _check_engine_config(cfg, engine_cfg)
         self.paged = self.kv_backend == "paged"
+        self.adapter_bytes = cfg.lora_adapter_bytes()
+        if engine_cfg.policy == "llamacpp":
+            # checked before anything is allocated on the device
+            total = cfg.lora.n_adapters * self.adapter_bytes
+            if total > engine_cfg.memory_budget:
+                raise OutOfMemoryError(
+                    f"llama.cpp preloads all adapters: "
+                    f"{cfg.lora.n_adapters} × {self.adapter_bytes/1e6:.2f}MB "
+                    f"= {total/1e6:.2f}MB > budget "
+                    f"{engine_cfg.memory_budget/1e6:.2f}MB")
         self.device = resolve_device(device)
         # concrete batched-LoRA backend ('einsum' | 'sgmv')
         self.lora_backend = resolve_lora_backend(
@@ -177,7 +208,6 @@ class EdgeLoRAEngine:
         self.lora_pool = self.model.init_lora(
             self._generator(engine_cfg.seed + 1), n_slots=self.n_pool)
         self.adapter_source = adapter_source or self._adapter_host
-        self.adapter_bytes = cfg.lora_adapter_bytes()
         self.router = router or OracleRouter(
             cfg.lora.n_adapters, accuracy=engine_cfg.router_accuracy,
             seed=engine_cfg.seed)
@@ -256,8 +286,25 @@ class EdgeLoRAEngine:
                                               pool, mode)
             return torch.argmax(logits, -1).to(torch.int32), cache
 
+        # merged-execution variants (llamacpp, dlora merged): the adapter
+        # is taken to be folded into W, so the step runs no LoRA at all
+        @torch.no_grad()
+        def prefill_merged(params: Any, tokens: Any, cache1: Any,
+                           length: Any) -> Any:
+            logits, cache1 = model.prefill(params, {"tokens": tokens},
+                                           cache1, lengths=length)
+            return torch.argmax(logits, -1).to(torch.int32), cache1
+
+        @torch.no_grad()
+        def decode_merged(params: Any, tokens: Any, cache: Any,
+                          pos: Any) -> Any:
+            logits, cache = model.decode_step(params, tokens, cache, pos)
+            return torch.argmax(logits, -1).to(torch.int32), cache
+
         self._prefill = prefill_fn
         self._decode = decode_fn
+        self._prefill_merged = prefill_merged
+        self._decode_merged = decode_merged
         template = self.model.init_cache(ecfg.n_slots, ecfg.max_ctx)
         if not self.paged:
             if ecfg.prefix_cache:
@@ -286,7 +333,18 @@ class EdgeLoRAEngine:
                     prefix_len, pool, mode)
                 return torch.argmax(logits, -1).to(torch.int32), cache1
 
+            @torch.no_grad()
+            def prefill_sfx_dense_merged_fn(params: Any, tokens: Any,
+                                            cache1: Any, gcache: Any,
+                                            slot_idx: Any, length: Any, *,
+                                            prefix_len: int) -> Any:
+                logits, cache1 = model.prefill_suffix_dense(
+                    params, tokens, cache1, gcache, slot_idx, length,
+                    prefix_len)
+                return torch.argmax(logits, -1).to(torch.int32), cache1
+
             self._prefill_sfx_dense = prefill_sfx_dense_fn
+            self._prefill_sfx_dense_merged = prefill_sfx_dense_merged_fn
             return
 
         # ---- paged KV: shared page arena + per-sequence block tables --
@@ -321,7 +379,17 @@ class EdgeLoRAEngine:
                 meta=meta, page_gather=page_gather)
             return torch.argmax(logits, -1).to(torch.int32), cache
 
+        @torch.no_grad()
+        def paged_decode_merged(params: Any, tokens: Any, cache: Any,
+                                tables: Any, lengths: Any, prompt_lens: Any,
+                                pad_lens: Any, pos: Any) -> Any:
+            logits, cache = model.decode_step_paged(
+                params, tokens, cache, tables, lengths, prompt_lens,
+                pad_lens, pos, meta=meta, page_gather=page_gather)
+            return torch.argmax(logits, -1).to(torch.int32), cache
+
         self._decode_paged = paged_decode_fn
+        self._decode_merged_paged = paged_decode_merged
 
         # ---- shared-prefix radix cache over the arena -----------------
         # (its suffix-prefill step doubles as chunked prefill's backbone,
@@ -350,7 +418,17 @@ class EdgeLoRAEngine:
                 pool, mode, meta=meta)
             return torch.argmax(logits, -1).to(torch.int32), cache1
 
+        @torch.no_grad()
+        def prefill_suffix_merged_fn(params: Any, tokens: Any, cache1: Any,
+                                     arena: Any, tables: Any, length: Any,
+                                     *, prefix_len: int) -> Any:
+            logits, cache1 = model.prefill_suffix(
+                params, tokens, cache1, arena, tables, length, prefix_len,
+                meta=meta)
+            return torch.argmax(logits, -1).to(torch.int32), cache1
+
         self._prefill_suffix = prefill_suffix_fn
+        self._prefill_suffix_merged = prefill_suffix_merged_fn
 
     def _dense_scatter_suffix(self, gcache: Any, bcache: Any,
                               slot_idx: torch.Tensor, lengths: Any, *,
@@ -440,9 +518,13 @@ class EdgeLoRAEngine:
         warms up and is *not* charged: fn runs twice, so every step is a
         pure function of its inputs (repeated in-place cache writes store
         the same values). The ``perf_counter`` calls are the reference's,
-        in the same order."""
-        del now, requests  # tracing hooks of the reference (not ported)
-        if key not in self._durations:
+        in the same order. With a tracer attached and ``now`` given, the
+        charge lands on the trace as a compute span (a key's first call
+        also as a compile instant: the warm-up); ``requests`` names the
+        real group members the span served (padding replicas
+        excluded)."""
+        warm = key not in self._durations
+        if warm:
             out = fn(*args)  # warm-up (uncharged)
             self._sync()
             t0 = self._timer.perf_counter()
@@ -457,6 +539,11 @@ class EdgeLoRAEngine:
                 self._timer.perf_counter() - t0)
         dt = self._durations[key] * self.ecfg.time_scale
         self.busy_time += dt
+        tr = self.tracer
+        if tr is not None and now is not None:
+            if warm:
+                tr.compile(now, key)
+            tr.compute(now, dt, key, requests)
         return out, dt
 
     # ------------------------------------------------------------------
@@ -496,241 +583,444 @@ class EdgeLoRAEngine:
         self.load_stall_seconds = 0.0
         self._serve_loads0 = self.manager.stats.loads
         self.manager.reset_channel()
-
-        def arrivals_ready() -> bool:
-            self._ingest(now)
-            return bool(self._ready)
-
-        while len(completed) + len(rejected) < len(queue):
-            if max_sim_time is not None and now > max_sim_time:
-                break
-            progressed = False
-            busy0 = self.busy_time
-
-            # ---- admission -------------------------------------------
-            idle = self.slots.idle()
-            while idle and arrivals_ready():
-                req = self._ready[0][3]
-                if ecfg.admission_control and req.ttft_slo is not None \
-                        and self._reject_expired(req, now, rejected):
-                    progressed = True
-                    continue
-                if self.paged and not self.kvpool.can_allocate(
-                        req.prompt_len + 1):
-                    # KV arena exhausted: leave the request queued and
-                    # retry once a completion (or preemption) frees
-                    # pages. +1: the first decode write must never run
-                    # out right after admission.
-                    self.kv_deferrals += 1
-                    break
-                heapq.heappop(self._ready)
-                slot = idle.pop()
-                slot.assign(req)
-                req.admit_time = now
-                slot.admit_seq = self._admit_counter
-                self._admit_counter += 1
+        # tracing: open the run and wire the channel and arena hooks for
+        # this serve only; the finally below unwires them even when the
+        # loop raises
+        tr = self.tracer
+        try:
+            if tr is not None:
+                tr.begin(now, ecfg.n_slots, meta={
+                    "policy": ecfg.policy, "kv_backend": self.kv_backend,
+                    "lora_backend": self.lora_backend,
+                    "async_swap": ecfg.async_swap,
+                    "prefill_chunk": ecfg.prefill_chunk,
+                    "prefix_cache": self.prefix_enabled,
+                    "buckets": list(self._buckets),
+                    "n_requests": len(queue)})
+                self.manager.on_event = tr.channel_hook
                 if self.paged:
-                    self.kvpool.register(req.request_id)
-                    key = (self._admission_exec_key(req)
-                           if self.prefix_enabled else None)
-                    if key is not None:
-                        # execution identity known at admission: splice
-                        # cached prefix pages now and allocate only the
-                        # suffix (the +1 headroom covers the COW page)
-                        slot.prefix_len = self._admit_prefix(req, key)
-                    else:
-                        # AAS-routed: adapter unknown until selection —
-                        # reserve the whole prompt, swap shared pages in
-                        # at SELECTING→PREFILL
-                        self.kvpool.append_tokens(req.request_id,
-                                                  req.prompt_len)
-                progressed = True
-            self.peak_active_slots = max(
-                self.peak_active_slots,
-                sum(s.state != SlotState.IDLE for s in self.slots.slots))
+                    self.kvpool.on_event = tr.arena_hook
+            active_adapter: Optional[int] = None  # llamacpp single-active
+            dlora_mode = "unmerged"               # dlora dynamic mode
+            dlora_merged_adapter: Optional[int] = None
 
-            # ---- adapter selection (Algorithm 1) ---------------------
-            if (ecfg.router_batching and ecfg.policy != "edgelora_no_aas"
-                    and getattr(self.router, "costs_forward", False)):
-                unscored = [
-                    s for s in self.slots.in_state(SlotState.SELECTING)
-                    if s.sel_scores is None and s.request.adapter_id is None]
-                score_groups: Dict[int, List[Slot]] = {}
-                for slot in unscored:
-                    self._slot_prompt(slot)
-                    score_groups.setdefault(slot.bucket, []).append(slot)
-                for b, group in score_groups.items():
-                    rows = self._pad_group(group)
-                    toks = self._to_device(
-                        np.stack([s.padded_prompt for s in rows]))
-                    sb, dt = self._timed(("router", b, len(rows)),
-                                         self.router.scores_batch, toks)
-                    now += dt
-                    self.router_steps += 1
-                    sb = np.asarray(sb)
-                    for i, slot in enumerate(group):
-                        slot.sel_scores = sb[i]
-            for slot in self.slots.in_state(SlotState.SELECTING):
-                req = slot.request
-                slot.merged = False
-                if ecfg.policy == "edgelora_no_aas" \
-                        or req.adapter_id is not None:
-                    req.selected_adapter = (req.adapter_id
-                                            if req.adapter_id is not None
-                                            else req.true_adapter)
-                else:
-                    scores = slot.sel_scores
-                    if scores is None:
-                        if getattr(self.router, "costs_forward", False):
-                            toks = self._to_device(
-                                self._slot_prompt(slot)[None, :])
-                            sb, dt = self._timed(("router", slot.bucket, 1),
-                                                 self.router.scores_batch,
-                                                 toks)
-                            now += dt
-                            self.router_steps += 1
-                            scores = np.asarray(sb)[0]
+            def dlora_desired() -> Tuple[str, Optional[int]]:
+                """Merge when the next window of requests (requeued work
+                first) is dominated by few adapters, on the head's
+                adapter (dLoRA §3)."""
+                ahead = [r.true_adapter for r in
+                         self._upcoming(ecfg.dlora_window)]
+                if not ahead:
+                    return dlora_mode, dlora_merged_adapter
+                uniq = set(ahead)
+                if len(uniq) <= ecfg.dlora_merge_uniques \
+                        and ahead.count(ahead[0]) * 2 >= len(ahead):
+                    return "merged", ahead[0]
+                return "unmerged", None
+
+            def arrivals_ready() -> bool:
+                self._ingest(now)
+                return bool(self._ready)
+
+            while len(completed) + len(rejected) < len(queue):
+                if max_sim_time is not None and now > max_sim_time:
+                    break
+                progressed = False
+                busy0 = self.busy_time
+
+                # ---- admission ---------------------------------------
+                idle = self.slots.idle()
+                if ecfg.policy == "dlora" and idle and arrivals_ready():
+                    want_mode, want_adapter = dlora_desired()
+                    if (want_mode, want_adapter) != (dlora_mode,
+                                                     dlora_merged_adapter):
+                        if self.slots.any_active:
+                            idle = []  # drain before switching modes
                         else:
-                            scores = np.asarray(self.router.scores(req))
-                        slot.sel_scores = scores
-                    aid, _ = select_adapter(scores, self.manager,
-                                            ecfg.top_k)
-                    req.selected_adapter = aid
-                try:
-                    res = self.manager.acquire(req.selected_adapter,
-                                               now=now)
-                except PoolExhaustedError:
-                    # every pool block is pinned by an in-flight request:
-                    # stay SELECTING and retry after a completion unpins
-                    continue
-                slot.sel_scores = None
-                now = self._finish_acquire(slot, res, now)
-                if self.prefix_enabled and \
-                        self._admission_exec_key(req) is None:
-                    # AAS-routed: match now that the adapter is known and
-                    # swap shared pages into the reserved table
-                    self._attach_prefix(slot)
-                progressed = True
-
-            # ---- async swap-in: transfers that have landed ------------
-            if ecfg.async_swap:
-                for slot in self.slots.in_state(SlotState.LOADING):
-                    if slot.ready_time <= now:
-                        slot.state = SlotState.PREFILL
+                            # unmerge old and/or merge new: weight-sized
+                            # traffic
+                            cost = 0.0
+                            if dlora_merged_adapter is not None:
+                                cost += (2 * self.adapter_bytes
+                                         / ecfg.mem_bandwidth)
+                            if want_adapter is not None:
+                                cost += (2 * self.adapter_bytes
+                                         / ecfg.mem_bandwidth)
+                            now += cost
+                            dlora_mode, dlora_merged_adapter = (
+                                want_mode, want_adapter)
+                            if tr is not None:
+                                tr.sched(now, "merge_switch",
+                                         mode=want_mode,
+                                         adapter=want_adapter, cost=cost)
+                while idle and arrivals_ready():
+                    req = self._ready[0][3]
+                    if ecfg.admission_control \
+                            and req.ttft_slo is not None \
+                            and self._reject_expired(req, now, rejected):
                         progressed = True
-                if ecfg.prefetch_depth > 0:
-                    self._run_prefetch(now)
+                        continue
+                    if ecfg.policy == "dlora" and dlora_mode == "merged" \
+                            and req.true_adapter != dlora_merged_adapter:
+                        break  # merged mode serves only the folded adapter
+                    if self.paged and not self.kvpool.can_allocate(
+                            req.prompt_len + 1):
+                        # KV arena exhausted: leave the request queued and
+                        # retry once a completion (or preemption) frees
+                        # pages; checked before any merge cost is charged.
+                        # +1: the first decode write must never run out
+                        # right after admission.
+                        self.kv_deferrals += 1
+                        if tr is not None:
+                            tr.sched(now, "defer_kv", request=req)
+                        break
+                    if ecfg.policy == "llamacpp":
+                        want = req.true_adapter
+                        if active_adapter is None:
+                            active_adapter = want
+                            # merge the adapter into the base weights
+                            now += (2 * self.adapter_bytes
+                                    / ecfg.mem_bandwidth)
+                            if tr is not None:
+                                tr.sched(now, "merge_switch", adapter=want)
+                        if want != active_adapter:
+                            if self.slots.any_active:
+                                break  # drain before switching adapters
+                            # unmerge old + merge new
+                            now += (4 * self.adapter_bytes
+                                    / ecfg.mem_bandwidth)
+                            active_adapter = want
+                            if tr is not None:
+                                tr.sched(now, "merge_switch", adapter=want)
+                    heapq.heappop(self._ready)
+                    slot = idle.pop()
+                    slot.assign(req)
+                    req.admit_time = now
+                    slot.admit_seq = self._admit_counter
+                    self._admit_counter += 1
+                    if tr is not None:
+                        tr.sched(now, "admit", request=req, slot=slot.index)
+                        tr.transition(now, slot.index, "idle", "selecting",
+                                      req)
+                    if self.paged:
+                        self.kvpool.register(req.request_id)
+                        key = (self._admission_exec_key(req, dlora_mode)
+                               if self.prefix_enabled else None)
+                        if key is not None:
+                            # execution identity known at admission:
+                            # splice cached prefix pages now and allocate
+                            # only the suffix (the +1 headroom covers the
+                            # COW page)
+                            slot.prefix_len = self._admit_prefix(req, key)
+                        else:
+                            # AAS-routed: adapter unknown until selection
+                            # — reserve the whole prompt, swap shared
+                            # pages in at SELECTING→PREFILL
+                            self.kvpool.append_tokens(req.request_id,
+                                                      req.prompt_len)
+                    progressed = True
+                self.peak_active_slots = max(
+                    self.peak_active_slots,
+                    sum(s.state != SlotState.IDLE for s in self.slots.slots))
 
-            # ---- prefill (gather→batch→scatter) ----------------------
-            prefilling = self.slots.in_state(SlotState.PREFILL)
-            if prefilling:
-                # groups share bucket, merged-ness and start: prefix-hit
-                # rows prefill only their suffix and chunked rows resume
-                # at their progress, each start a different step shape
-                chunk = ecfg.prefill_chunk
-                groups: Dict[Tuple[int, bool, int], List[Slot]] = {}
-                for slot in prefilling:
-                    self._slot_prompt(slot)
-                    # chunked progress starts at the prefix-cache hit
-                    if slot.prefill_pos < slot.prefix_len:
-                        slot.prefill_pos = slot.prefix_len
-                    start = (slot.prefill_pos if self.chunked
-                             else slot.prefix_len)
-                    groups.setdefault((slot.bucket, slot.merged, start),
-                                      []).append(slot)
-                work: List[Tuple[int, int, List[Slot]]] = []
-                for (b, _merged, start), group in groups.items():
-                    if ecfg.prefill_batching:
-                        work.append((b, start, group))
-                    else:  # pre-batching baseline: one B=1 call per slot
-                        work.extend((b, start, [s]) for s in group)
-                for b, start, group in work:
-                    span = b - start
-                    # whole-span groups take the un-chunked paths; dense
-                    # mid-prompt progress always goes through
-                    # _prefill_chunk (_prefill_group's suffix branch is
-                    # paged-only)
-                    if not self.chunked or (chunk >= span
-                                            and (start == 0 or self.paged)):
-                        now += self._prefill_group(b, start, group, now)
-                    else:
-                        now += self._prefill_chunk(
-                            b, start, min(chunk, span), group, now)
-                progressed = True
-
-            # ---- batched decode (Batch LoRA Inference) ----------------
-            gen = self.slots.in_state(SlotState.GENERATE)
-            if gen and self.paged:
-                # allocate this step's page per sequence up front; a dry
-                # arena preempts the youngest admission (LIFO restart)
-                gen = self._secure_decode_blocks(gen, now)
-                progressed = True  # preemption alone is progress
-            if gen:
-                # idle rows run too: token 0, pos 0, pool slot 0 — they
-                # write ring index 0 of idle slots (dense) or the trash
-                # page (paged), as in the reference
-                tokens = np.zeros((ecfg.n_slots,), np.int32)
-                pos = np.zeros((ecfg.n_slots,), np.int32)
-                sids = np.zeros((ecfg.n_slots,), np.int32)
-                for slot in gen:
-                    tokens[slot.index] = slot.last_token
-                    pos[slot.index] = slot.pos
-                    sids[slot.index] = slot.adapter_slot
-                if self.paged:
-                    tables, lengths, plens, bwlens = \
-                        self._decode_tables(gen)
-                    (next_toks, self.cache), dt = self._timed(
-                        ("decode",), self._decode_paged, self.params,
-                        self.lora_pool, self._to_device(tokens), self.cache,
-                        tables, lengths, plens, bwlens,
-                        self._to_device(pos), self._to_device(sids))
-                else:
-                    (next_toks, self.cache), dt = self._timed(
-                        ("decode",), self._decode, self.params,
-                        self.lora_pool, self._to_device(tokens), self.cache,
-                        self._to_device(pos), self._to_device(sids))
-                now += dt
-                self.decode_steps += 1
-                next_np = next_toks.cpu().numpy()
-                for slot in gen:
+                # ---- adapter selection (Algorithm 1) -----------------
+                if (ecfg.router_batching
+                        and ecfg.policy not in ("dlora", "llamacpp",
+                                                "edgelora_no_aas")
+                        and getattr(self.router, "costs_forward", False)):
+                    unscored = [
+                        s for s in self.slots.in_state(SlotState.SELECTING)
+                        if s.sel_scores is None
+                        and s.request.adapter_id is None]
+                    score_groups: Dict[int, List[Slot]] = {}
+                    for slot in unscored:
+                        self._slot_prompt(slot)
+                        score_groups.setdefault(slot.bucket, []).append(slot)
+                    for b, group in score_groups.items():
+                        rows = self._pad_group(group)
+                        toks = self._to_device(
+                            np.stack([s.padded_prompt for s in rows]))
+                        rids = ([s.request.request_id for s in group]
+                                if tr is not None else None)
+                        sb, dt = self._timed(("router", b, len(rows)),
+                                             self.router.scores_batch, toks,
+                                             now=now, requests=rids)
+                        now += dt
+                        self.router_steps += 1
+                        sb = np.asarray(sb)
+                        for i, slot in enumerate(group):
+                            slot.sel_scores = sb[i]
+                for slot in self.slots.in_state(SlotState.SELECTING):
                     req = slot.request
-                    slot.last_token = int(next_np[slot.index])
-                    slot.pos += 1
-                    req.generated += 1
-                    req.tokens.append(slot.last_token)
-                    if req.generated >= req.output_len \
-                            or slot.pos >= ecfg.max_ctx - 1:
-                        req.finish_time = now
-                        self.manager.unpin(req.selected_adapter)
-                        if self.paged:
-                            self.kvpool.release(req.request_id)
-                        completed.append(slot.release())
-                progressed = True
-
-            # ---- per-iteration step time (compute charged this tick) --
-            step_busy = self.busy_time - busy0
-            if step_busy > 0.0:
-                self._note_step(step_busy)
-
-            # ---- idle / load-blocked: jump to the earliest event ------
-            if not progressed:
-                loading = self.slots.in_state(SlotState.LOADING)
-                if loading:
-                    wake = min(s.ready_time for s in loading)
-                    if not self._ready and self._qi < len(queue):
-                        arr = max(now, queue[self._qi].arrival_time)
-                        if now < arr < wake:
-                            now = arr  # an arrival may unblock admission
+                    if ecfg.policy == "dlora":
+                        req.selected_adapter = req.true_adapter
+                        slot.merged = dlora_mode == "merged"
+                        if not slot.merged:
+                            try:
+                                res = self.manager.acquire(
+                                    req.selected_adapter, now=now)
+                            except PoolExhaustedError:
+                                if tr is not None:
+                                    tr.sched(now, "defer_pool", request=req)
+                                continue  # pool fully pinned: defer
+                            now = self._finish_acquire(slot, res, now)
+                        else:
+                            slot.adapter_slot = 0
+                            slot.state = SlotState.PREFILL
+                            if tr is not None:
+                                tr.transition(now, slot.index, "selecting",
+                                              "prefill", req)
+                        progressed = True
+                        continue
+                    slot.merged = False
+                    if ecfg.policy == "llamacpp":
+                        # merged execution: the active adapter was folded
+                        # into W at admission (cost charged there), so the
+                        # steps run no LoRA at all
+                        req.selected_adapter = req.true_adapter
+                        slot.merged = True
+                    elif ecfg.policy == "edgelora_no_aas" \
+                            or req.adapter_id is not None:
+                        req.selected_adapter = (req.adapter_id
+                                                if req.adapter_id is not None
+                                                else req.true_adapter)
+                    else:
+                        # scores are computed (and charged) once per
+                        # request and cached on the slot: a deferral below
+                        # must not re-roll the oracle or re-charge a
+                        # router forward
+                        scores = slot.sel_scores
+                        if scores is None:
+                            if getattr(self.router, "costs_forward", False):
+                                toks = self._to_device(
+                                    self._slot_prompt(slot)[None, :])
+                                rids = ([req.request_id]
+                                        if tr is not None else None)
+                                sb, dt = self._timed(
+                                    ("router", slot.bucket, 1),
+                                    self.router.scores_batch, toks, now=now,
+                                    requests=rids)
+                                now += dt
+                                self.router_steps += 1
+                                scores = np.asarray(sb)[0]
+                            else:
+                                scores = np.asarray(self.router.scores(req))
+                            slot.sel_scores = scores
+                        aid, _ = select_adapter(scores, self.manager,
+                                                ecfg.top_k)
+                        req.selected_adapter = aid
+                    if ecfg.policy != "llamacpp":
+                        try:
+                            res = self.manager.acquire(req.selected_adapter,
+                                                       now=now)
+                        except PoolExhaustedError:
+                            # every pool block is pinned by an in-flight
+                            # request: stay SELECTING and retry after a
+                            # completion unpins
+                            if tr is not None:
+                                tr.sched(now, "defer_pool", request=req)
                             continue
-                    self.load_stall_seconds += max(0.0, wake - now)
-                    now = max(now, wake)
-                elif self._ready:
-                    continue
-                elif self._qi < len(queue):
-                    now = max(now, queue[self._qi].arrival_time)
-                else:
-                    break
+                        slot.sel_scores = None
+                        now = self._finish_acquire(slot, res, now)
+                    else:
+                        slot.sel_scores = None
+                        slot.adapter_slot = 0  # merged: the adapter rides W
+                        slot.state = SlotState.PREFILL
+                        if tr is not None:
+                            tr.transition(now, slot.index, "selecting",
+                                          "prefill", req)
+                    if self.prefix_enabled and \
+                            self._admission_exec_key(req, dlora_mode) is None:
+                        # AAS-routed: match now that the adapter is known
+                        # and swap shared pages into the reserved table
+                        self._attach_prefix(slot)
+                    progressed = True
 
+                # ---- async swap-in: transfers that have landed --------
+                if ecfg.async_swap:
+                    for slot in self.slots.in_state(SlotState.LOADING):
+                        if slot.ready_time <= now:
+                            slot.state = SlotState.PREFILL
+                            if tr is not None:
+                                tr.transition(now, slot.index, "loading",
+                                              "prefill", slot.request)
+                            progressed = True
+                    if ecfg.prefetch_depth > 0 and ecfg.policy != "llamacpp":
+                        self._run_prefetch(now, dlora_mode)
+
+                # ---- prefill (gather→batch→scatter) ------------------
+                prefilling = self.slots.in_state(SlotState.PREFILL)
+                if prefilling:
+                    # groups share bucket, merged-ness and start: merged
+                    # steps run no LoRA, prefix-hit rows prefill only
+                    # their suffix and chunked rows resume at their
+                    # progress, each start a different step shape
+                    chunk = ecfg.prefill_chunk
+                    groups: Dict[Tuple[int, bool, int], List[Slot]] = {}
+                    for slot in prefilling:
+                        self._slot_prompt(slot)
+                        # chunked progress starts at the prefix-cache hit
+                        if slot.prefill_pos < slot.prefix_len:
+                            slot.prefill_pos = slot.prefix_len
+                        start = (slot.prefill_pos if self.chunked
+                                 else slot.prefix_len)
+                        groups.setdefault((slot.bucket, slot.merged, start),
+                                          []).append(slot)
+                    work: List[Tuple[int, bool, int, List[Slot]]] = []
+                    for (b, merged, start), group in groups.items():
+                        if ecfg.prefill_batching:
+                            work.append((b, merged, start, group))
+                        else:  # pre-batching baseline: one B=1 call each
+                            work.extend((b, merged, start, [s])
+                                        for s in group)
+                    for b, merged, start, group in work:
+                        span = b - start
+                        # whole-span groups take the un-chunked paths;
+                        # dense mid-prompt progress always goes through
+                        # _prefill_chunk (_prefill_group's suffix branch
+                        # is paged-only)
+                        if not self.chunked or (
+                                chunk >= span
+                                and (start == 0 or self.paged)):
+                            now += self._prefill_group(b, merged, start,
+                                                       group, now)
+                        else:
+                            now += self._prefill_chunk(
+                                b, merged, start, min(chunk, span), group,
+                                now)
+                    progressed = True
+
+                # ---- batched decode (Batch LoRA Inference) -----------
+                gen = self.slots.in_state(SlotState.GENERATE)
+                if gen and self.paged:
+                    # allocate this step's page per sequence up front; a
+                    # dry arena preempts the youngest admission (LIFO
+                    # restart)
+                    gen = self._secure_decode_blocks(gen, now)
+                    progressed = True  # preemption alone is progress
+                if gen:
+                    rids = ([s.request.request_id for s in gen]
+                            if tr is not None else None)
+                    # idle rows run too: token 0, pos 0, pool slot 0 —
+                    # they write ring index 0 of idle slots (dense) or the
+                    # trash page (paged), as in the reference
+                    tokens = np.zeros((ecfg.n_slots,), np.int32)
+                    pos = np.zeros((ecfg.n_slots,), np.int32)
+                    sids = np.zeros((ecfg.n_slots,), np.int32)
+                    for slot in gen:
+                        tokens[slot.index] = slot.last_token
+                        pos[slot.index] = slot.pos
+                        sids[slot.index] = slot.adapter_slot
+                    merged_step = (ecfg.policy == "llamacpp"
+                                   or (ecfg.policy == "dlora"
+                                       and dlora_mode == "merged"))
+                    if self.paged:
+                        tables, lengths, plens, bwlens = \
+                            self._decode_tables(gen)
+                        if merged_step:
+                            (next_toks, self.cache), dt = self._timed(
+                                ("decode_merged",), self._decode_merged_paged,
+                                self.params, self._to_device(tokens),
+                                self.cache, tables, lengths, plens, bwlens,
+                                self._to_device(pos), now=now,
+                                requests=rids)
+                        else:
+                            (next_toks, self.cache), dt = self._timed(
+                                ("decode",), self._decode_paged, self.params,
+                                self.lora_pool, self._to_device(tokens),
+                                self.cache, tables, lengths, plens, bwlens,
+                                self._to_device(pos), self._to_device(sids),
+                                now=now, requests=rids)
+                    elif merged_step:
+                        (next_toks, self.cache), dt = self._timed(
+                            ("decode_merged",), self._decode_merged,
+                            self.params, self._to_device(tokens), self.cache,
+                            self._to_device(pos), now=now, requests=rids)
+                    else:
+                        (next_toks, self.cache), dt = self._timed(
+                            ("decode",), self._decode, self.params,
+                            self.lora_pool, self._to_device(tokens),
+                            self.cache, self._to_device(pos),
+                            self._to_device(sids), now=now, requests=rids)
+                    now += dt
+                    self.decode_steps += 1
+                    next_np = next_toks.cpu().numpy()
+                    for slot in gen:
+                        req = slot.request
+                        slot.last_token = int(next_np[slot.index])
+                        slot.pos += 1
+                        req.generated += 1
+                        req.tokens.append(slot.last_token)
+                        if req.generated >= req.output_len \
+                                or slot.pos >= ecfg.max_ctx - 1:
+                            req.finish_time = now
+                            if ecfg.policy != "llamacpp" \
+                                    and not slot.merged:
+                                self.manager.unpin(req.selected_adapter)
+                            if tr is not None:
+                                tr.transition(now, slot.index, "generate",
+                                              "idle", req)
+                            if self.paged:
+                                self.kvpool.release(req.request_id)
+                            completed.append(slot.release())
+                    progressed = True
+
+                # ---- per-iteration step time (compute charged) -------
+                step_busy = self.busy_time - busy0
+                if step_busy > 0.0:
+                    self._note_step(step_busy)
+
+                # ---- once-per-step metrics sampling (tracing only) ---
+                if tr is not None:
+                    if self.paged:
+                        tr.metrics.gauge("arena_blocks_used").set(
+                            self.kvpool.used_blocks)
+                    tr.sample(
+                        now,
+                        queue_depth=len(self._ready),
+                        active_slots=sum(s.state != SlotState.IDLE
+                                         for s in self.slots.slots),
+                        decode_batch=len(gen),
+                        resident_adapters=self.manager.n_resident,
+                        loading_adapters=len(self.manager.loading))
+
+                # ---- idle / load-blocked: jump to the earliest event --
+                if not progressed:
+                    loading = self.slots.in_state(SlotState.LOADING)
+                    if loading:
+                        wake = min(s.ready_time for s in loading)
+                        if not self._ready and self._qi < len(queue):
+                            arr = max(now, queue[self._qi].arrival_time)
+                            if now < arr < wake:
+                                now = arr  # an arrival may unblock admission
+                                continue
+                        self.load_stall_seconds += max(0.0, wake - now)
+                        now = max(now, wake)
+                    elif self._ready:
+                        continue
+                    elif self._qi < len(queue):
+                        now = max(now, queue[self._qi].arrival_time)
+                    else:
+                        break
+
+            if tr is not None:
+                tr.finish(now)
+                # shape watchdog: audit every step key against the bound
+                # the power-of-two group padding promises
+                tr.watchdog_report = jit_cache_report(
+                    self._durations.keys(), buckets=self._buckets,
+                    n_slots=ecfg.n_slots, prefill_chunk=ecfg.prefill_chunk,
+                    prefix_cache=self.prefix_enabled,
+                    block_size=ecfg.kv_block_size, max_ctx=ecfg.max_ctx)
+                if tr.strict_watchdog and not tr.watchdog_report["ok"]:
+                    raise JitRecompileError(
+                        "step keys exceeded the documented shape bound:\n  "
+                        + "\n  ".join(tr.watchdog_report["violations"]))
+        finally:
+            # the observers wired above never outlive this serve
+            self.manager.on_event = None
+            if self.paged:
+                self.kvpool.on_event = None
         duration = max(now, 1e-9)
         kv_stats = None
         if self.paged:
@@ -774,7 +1064,9 @@ class EdgeLoRAEngine:
                              "max_step_seconds":
                                  (self.max_step_seconds
                                   if self._step_hist else None),
-                             "latency_breakdown": None,
+                             "latency_breakdown":
+                                 (tr.breakdown_summary()
+                                  if tr is not None else None),
                          })
 
     # ------------------------------------------------------------------
@@ -792,6 +1084,13 @@ class EdgeLoRAEngine:
         while self._qi < len(q) and q[self._qi].arrival_time <= now:
             self._push_ready(q[self._qi])
             self._qi += 1
+
+    def _upcoming(self, n: int) -> List[Request]:
+        """The next ``n`` requests admission will see, in order: heap
+        order over the ready set, then future arrivals (the window
+        dlora's merge heuristic scans)."""
+        head = [e[3] for e in heapq.nsmallest(n, self._ready)]
+        return (head + self._queue[self._qi:self._qi + n])[:n]
 
     def _reject_expired(self, req: Request, now: float,
                         rejected: List[Request]) -> bool:
@@ -811,6 +1110,8 @@ class EdgeLoRAEngine:
         req.rejected = why
         req.reject_time = now
         rejected.append(req)
+        if self.tracer is not None:
+            self.tracer.sched(now, why, request=req, wait=wait)
         return True
 
     def _note_ttft(self, bucket: int, req: Request, t_first: float) -> None:
@@ -854,14 +1155,18 @@ class EdgeLoRAEngine:
             [self.kvpool.block_table(s.request.request_id, mb)
              for s in rows]))
 
-    def _prefill_group(self, bucket: int, prefix_len: int,
+    def _prefill_group(self, bucket: int, merged: bool, prefix_len: int,
                        group: List[Slot], now: float) -> float:
-        """One batched prefill over ``group`` (same bucket, same prefix
-        length, mixed adapters); all fresh KV slices land in the global
-        cache in one indexed write per leaf. Prefix-hit groups
-        (prefix_len > 0, paged only) run the suffix-only prefill over
-        their spliced block tables. Returns the time charged for the
-        group."""
+        """One batched prefill over ``group`` (same bucket, same
+        merged-ness, same prefix length, mixed adapters); all fresh KV
+        slices land in the global cache in one indexed write per leaf.
+        Prefix-hit groups (prefix_len > 0, paged only) run the
+        suffix-only prefill over their spliced block tables. Merged
+        groups run the step with no LoRA. Returns the time charged for
+        the group."""
+        tr = self.tracer
+        rids = ([s.request.request_id for s in group]
+                if tr is not None else None)
         rows = self._pad_group(group)
         lengths, sids, slot_idx = self._group_rows(rows)
         cacheb = self._fresh_cache(len(rows))
@@ -871,20 +1176,35 @@ class EdgeLoRAEngine:
             # prefix columns keeps key widths equal to the cold prefill
             toks = self._to_device(np.stack(
                 [s.padded_prompt[prefix_len:] for s in rows]))
-            fn = functools.partial(self._prefill_suffix,
-                                   prefix_len=prefix_len)
-            (first, cacheb), dt = self._timed(
-                ("prefill_sfx", bucket, prefix_len, len(rows)), fn,
-                self.params, self.lora_pool, toks, cacheb, self.cache,
-                tables, sids, lengths)
+            if merged:
+                fn = functools.partial(self._prefill_suffix_merged,
+                                       prefix_len=prefix_len)
+                (first, cacheb), dt = self._timed(
+                    ("prefill_sfx_merged", bucket, prefix_len, len(rows)),
+                    fn, self.params, toks, cacheb, self.cache, tables,
+                    lengths, now=now, requests=rids)
+            else:
+                fn = functools.partial(self._prefill_suffix,
+                                       prefix_len=prefix_len)
+                (first, cacheb), dt = self._timed(
+                    ("prefill_sfx", bucket, prefix_len, len(rows)), fn,
+                    self.params, self.lora_pool, toks, cacheb, self.cache,
+                    tables, sids, lengths, now=now, requests=rids)
             self.cache = kvlib.scatter_suffix(
                 self.cache, cacheb, tables, lengths, prefix_len,
                 bucket - prefix_len, self._kv_meta)
         else:
             toks = self._to_device(np.stack([s.padded_prompt for s in rows]))
-            (first, cacheb), dt = self._timed(
-                ("prefill", bucket, len(rows)), self._prefill, self.params,
-                self.lora_pool, toks, cacheb, sids, lengths)
+            if merged:
+                (first, cacheb), dt = self._timed(
+                    ("prefill_merged", bucket, len(rows)),
+                    self._prefill_merged, self.params, toks, cacheb,
+                    lengths, now=now, requests=rids)
+            else:
+                (first, cacheb), dt = self._timed(
+                    ("prefill", bucket, len(rows)), self._prefill,
+                    self.params, self.lora_pool, toks, cacheb, sids, lengths,
+                    now=now, requests=rids)
             if self.paged:
                 bwlens = torch.full((len(rows),), bucket, dtype=torch.int32,
                                     device=self.device)
@@ -905,6 +1225,11 @@ class EdgeLoRAEngine:
             req.generated = 1
             req.tokens = [slot.last_token]
             slot.state = SlotState.GENERATE
+            if tr is not None:
+                # the group's charged step ends at now + dt, when the
+                # request's first token exists
+                tr.transition(now + dt, slot.index, "prefill", "generate",
+                              req)
             self._note_ttft(slot.bucket, req, now + dt)
         if self.prefix_enabled:
             # index every full prompt block (cold rows donate fresh
@@ -915,17 +1240,20 @@ class EdgeLoRAEngine:
                     self.kvpool.tables[slot.request.request_id])
         return dt
 
-    def _prefill_chunk(self, bucket: int, start: int, width: int,
-                       group: List[Slot], now: float) -> float:
+    def _prefill_chunk(self, bucket: int, merged: bool, start: int,
+                       width: int, group: List[Slot], now: float) -> float:
         """One bounded slice of chunked prefill: prompt positions
         [start, start + width) for every slot in ``group`` (same bucket,
-        same progress) as a suffix prefill over the KV earlier chunks
-        wrote; then either advance ``prefill_pos`` (more chunks pending:
-        decode steps interleave before the next) or emit the first token
-        (terminal chunk). start == 0 reuses the plain prefill step at
-        chunk width; later chunks the suffix step (paged) or its dense
-        sibling. Timing keys are the reference's. Returns the time
-        charged for the group."""
+        same merged-ness, same progress) as a suffix prefill over the KV
+        earlier chunks wrote; then either advance ``prefill_pos`` (more
+        chunks pending: decode steps interleave before the next) or emit
+        the first token (terminal chunk). start == 0 reuses the plain
+        prefill step at chunk width; later chunks the suffix step (paged)
+        or its dense sibling, each with its merged variant. Timing keys
+        are the reference's. Returns the time charged for the group."""
+        tr = self.tracer
+        rids = ([s.request.request_id for s in group]
+                if tr is not None else None)
         rows = self._pad_group(group)
         end = start + width
         real, sids, slot_idx = self._group_rows(rows)
@@ -937,18 +1265,32 @@ class EdgeLoRAEngine:
         toks = self._to_device(np.stack(
             [s.padded_prompt[start:end] for s in rows]))
         if start == 0:
-            (first, cacheb), dt = self._timed(
-                ("prefill", width, len(rows)), self._prefill, self.params,
-                self.lora_pool, toks, cacheb, sids, lengths)
+            if merged:
+                (first, cacheb), dt = self._timed(
+                    ("prefill_merged", width, len(rows)),
+                    self._prefill_merged, self.params, toks, cacheb,
+                    lengths, now=now, requests=rids)
+            else:
+                (first, cacheb), dt = self._timed(
+                    ("prefill", width, len(rows)), self._prefill,
+                    self.params, self.lora_pool, toks, cacheb, sids, lengths,
+                    now=now, requests=rids)
         if self.paged:
             tables = self._group_tables(rows)
-            if start:
+            if start and merged:
+                fn = functools.partial(self._prefill_suffix_merged,
+                                       prefix_len=start)
+                (first, cacheb), dt = self._timed(
+                    ("prefill_sfx_merged", end, start, len(rows)), fn,
+                    self.params, toks, cacheb, self.cache, tables, lengths,
+                    now=now, requests=rids)
+            elif start:
                 fn = functools.partial(self._prefill_suffix,
                                        prefix_len=start)
                 (first, cacheb), dt = self._timed(
                     ("prefill_sfx", end, start, len(rows)), fn, self.params,
                     self.lora_pool, toks, cacheb, self.cache, tables, sids,
-                    lengths)
+                    lengths, now=now, requests=rids)
             # scatter_suffix covers start == 0 too (mini ring index ==
             # position); pad columns land in the trash page
             self.cache = kvlib.scatter_suffix(
@@ -959,12 +1301,20 @@ class EdgeLoRAEngine:
             # the chunk are still at their invalid init state)
             self.cache = self._write_slots(self.cache, cacheb, slot_idx)
         else:
-            fn = functools.partial(self._prefill_sfx_dense,
-                                   prefix_len=start)
-            (first, cacheb), dt = self._timed(
-                ("prefill_sfx_dense", end, start, len(rows)), fn,
-                self.params, self.lora_pool, toks, cacheb, self.cache,
-                slot_idx, sids, lengths)
+            if merged:
+                fn = functools.partial(self._prefill_sfx_dense_merged,
+                                       prefix_len=start)
+                (first, cacheb), dt = self._timed(
+                    ("prefill_sfx_dense_merged", end, start, len(rows)), fn,
+                    self.params, toks, cacheb, self.cache, slot_idx, lengths,
+                    now=now, requests=rids)
+            else:
+                fn = functools.partial(self._prefill_sfx_dense,
+                                       prefix_len=start)
+                (first, cacheb), dt = self._timed(
+                    ("prefill_sfx_dense", end, start, len(rows)), fn,
+                    self.params, self.lora_pool, toks, cacheb, self.cache,
+                    slot_idx, sids, lengths, now=now, requests=rids)
             self.cache = self._dense_scatter_suffix(
                 self.cache, cacheb, slot_idx, real, prefix_len=start,
                 suffix_len=width)
@@ -982,6 +1332,9 @@ class EdgeLoRAEngine:
                 req.generated = 1
                 req.tokens = [slot.last_token]
                 slot.state = SlotState.GENERATE
+                if tr is not None:
+                    tr.transition(now + dt, slot.index, "prefill",
+                                  "generate", req)
                 self._note_ttft(slot.bucket, req, now + dt)
                 if self.prefix_enabled:
                     self.prefix_cache.insert(
@@ -1000,14 +1353,23 @@ class EdgeLoRAEngine:
         depth > 0 depends on the adapter (and on merged execution)."""
         return (slot.merged, slot.request.selected_adapter)
 
-    def _admission_exec_key(self, req: Request) -> Optional[Tuple]:
+    def _admission_exec_key(self, req: Request,
+                            dlora_mode: str) -> Optional[Tuple]:
         """The execution identity a request will run under when it is
-        known at admission (explicit adapter, ``edgelora_no_aas``). None
-        for AAS-routed requests: admission reserves conservatively and
-        the prefix match happens at selection."""
+        known at admission (every policy but AAS-routed ``edgelora``).
+        None for AAS-routed requests: admission reserves conservatively
+        and the prefix match happens at selection."""
+        policy = self.ecfg.policy
+        if policy == "llamacpp":
+            return (True, req.true_adapter)
+        if policy == "dlora":
+            # merged admissions pass the gate only on the folded adapter,
+            # and the mode cannot flip before selection (a switch drains
+            # the batch first)
+            return (dlora_mode == "merged", req.true_adapter)
         if req.adapter_id is not None:
             return (False, req.adapter_id)
-        if self.ecfg.policy == "edgelora_no_aas":
+        if policy == "edgelora_no_aas":
             return (False, req.true_adapter)
         return None
 
@@ -1077,37 +1439,63 @@ class EdgeLoRAEngine:
         async parks it in LOADING until the transfer's ready_time; sync
         stalls the clock to ready_time. Returns the (possibly advanced)
         clock."""
+        tr = self.tracer
         self.manager.pin(res.adapter_id)
         slot.adapter_slot = res.slot
         if self.ecfg.async_swap:
             if res.ready_time > now:
                 slot.ready_time = res.ready_time
                 slot.state = SlotState.LOADING
+                if tr is not None:
+                    tr.transition(now, slot.index, "selecting", "loading",
+                                  slot.request, adapter=res.adapter_id)
             else:
                 slot.state = SlotState.PREFILL
+                if tr is not None:
+                    tr.transition(now, slot.index, "selecting", "prefill",
+                                  slot.request)
             return now
         if res.ready_time > now:
             self.load_stall_seconds += res.ready_time - now
+            # the whole engine stalls through a sync load: the trace
+            # records it as a LOADING interval
+            if tr is not None:
+                tr.transition(now, slot.index, "selecting", "loading",
+                              slot.request, adapter=res.adapter_id)
             now = res.ready_time
+            slot.state = SlotState.PREFILL
+            if tr is not None:
+                tr.transition(now, slot.index, "loading", "prefill",
+                              slot.request)
+            return now
         slot.state = SlotState.PREFILL
+        if tr is not None:
+            tr.transition(now, slot.index, "selecting", "prefill",
+                          slot.request)
         return now
 
-    def _known_adapter(self, req: Request) -> Optional[int]:
+    def _known_adapter(self, req: Request,
+                       dlora_mode: str) -> Optional[int]:
         """The pool adapter a waiting request will demand, when already
-        determined (None: AAS picks at SELECTING)."""
+        determined (None: AAS picks at SELECTING, or the policy runs
+        merged and never touches the pool)."""
         if req.adapter_id is not None:
             return req.adapter_id
-        if self.ecfg.policy == "edgelora_no_aas":
+        policy = self.ecfg.policy
+        if policy == "edgelora_no_aas":
+            return req.true_adapter
+        if policy == "dlora" and dlora_mode != "merged":
             return req.true_adapter
         return None
 
-    def _predicted_adapter(self, req: Request) -> Optional[int]:
+    def _predicted_adapter(self, req: Request,
+                           dlora_mode: str) -> Optional[int]:
         """Known adapter, or a cheap AAS prediction: a bookkeeping-only
         router scores a waiting request for free, so run the cache-aware
         selection it will make on admission; a forward-costing router
         reuses only a preempted request's previous selection. None: not
         predictable, or already resident."""
-        aid = self._known_adapter(req)
+        aid = self._known_adapter(req, dlora_mode)
         if aid is not None:
             return aid
         if self.ecfg.policy != "edgelora":
@@ -1120,7 +1508,7 @@ class EdgeLoRAEngine:
             return None if cached else aid
         return req.prefetch_hint
 
-    def _run_prefetch(self, now: float) -> None:
+    def _run_prefetch(self, now: float, dlora_mode: str) -> None:
         """Queue-ahead prefetch: start swap-ins for the ready heap's
         upcoming demand (admission order), bounded by ``prefetch_depth``;
         the lookahead window is the manager's protect set, and the
@@ -1131,7 +1519,7 @@ class EdgeLoRAEngine:
         waiting = [e[3] for e in heapq.nsmallest(
             4 * ecfg.prefetch_depth, self._ready)]
         for r in waiting:
-            aid = self._predicted_adapter(r)
+            aid = self._predicted_adapter(r, dlora_mode)
             if aid is not None:
                 targets.append(aid)
         seen: set = set()
@@ -1179,6 +1567,8 @@ class EdgeLoRAEngine:
         active slot (LIFO restart-recompute). The init-time capacity
         check (arena ≥ one max_ctx sequence) guarantees the oldest
         admission always makes progress."""
+        if self.tracer is not None:
+            self.tracer.clock(now)  # arena events land at this step
         secured: List[Slot] = []
         for slot in sorted(gen, key=lambda s: s.admit_seq):
             if slot.state != SlotState.GENERATE:
@@ -1206,11 +1596,19 @@ class EdgeLoRAEngine:
         semantics — partial output is discarded and the request
         re-admits (and re-prefills) ahead of new arrivals once capacity
         returns."""
-        del now  # the reference's tracing hook (not ported)
         req = slot.request
+        tr = self.tracer
+        if tr is not None:
+            # close the slot's open span before release mutates state;
+            # its in-slot time becomes the request's 'preempted' segment
+            tr.transition(now, slot.index, slot.state.value, "idle",
+                          req, preempted=True)
+            tr.sched(now, "preempt", request=req, slot=slot.index)
+            tr.sched(now, "requeue", request=req)
         self.kvpool.release(req.request_id)
-        if not slot.merged and slot.state in (
-                SlotState.LOADING, SlotState.PREFILL, SlotState.GENERATE):
+        if self.ecfg.policy != "llamacpp" and not slot.merged \
+                and slot.state in (SlotState.LOADING, SlotState.PREFILL,
+                                   SlotState.GENERATE):
             self.manager.unpin(req.selected_adapter)
         if req.selected_adapter is not None:
             req.prefetch_hint = req.selected_adapter

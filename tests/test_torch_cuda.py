@@ -639,3 +639,180 @@ def test_cuda_flash_prefill_tensor_core_shapes(dev, hd, sq, skv, offset,
     want = fp.flash_prefill_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     _attn_close(got, want, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the shapes of qwen2-0.5b, llama3.2-3b and openelm-1.1b
+# ---------------------------------------------------------------------------
+
+# (g, kh, hd): qwen2-0.5b (14 heads over 2, hd 64: a 64-row tile of
+# (position, head) pairs splits a position's 7 heads across CTAs),
+# llama3.2-3b (24 over 8, hd 128), openelm-1.1b (16 over 4, hd 128)
+NEW_GQA = [(7, 2, 64), (3, 8, 128), (4, 4, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,kh,hd", NEW_GQA)
+def test_cuda_flash_prefill_new_gqa_groups(dev, dtype, g, kh, hd):
+    """A full prefill group (8 x 64 causal), a ragged one (Sq 37) and a
+    suffix step (32 queries over 64 cached + 32 fresh keys)."""
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for b, sq, offset in ((8, 64, 0), (2, 37, 0), (4, 32, 64)):
+        skv = offset + sq
+        q = torch.randn(b, sq, g * kh, hd, generator=gen,
+                        device=dev).to(dtype)
+        k, v = (torch.randn(b, skv, kh, hd, generator=gen,
+                            device=dev).to(dtype) for _ in "kv")
+        kw = {}
+        if offset:
+            kw = dict(qpos=torch.arange(offset, skv, dtype=torch.int32,
+                                        device=dev),
+                      kpos=torch.arange(skv, dtype=torch.int32, device=dev))
+        got = fp.flash_prefill(q, k, v, **kw)
+        want = fp.flash_prefill_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        _attn_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,kh,hd", NEW_GQA)
+def test_cuda_flash_decode_new_gqa_groups(dev, dtype, g, kh, hd):
+    """One decode step's layer: 8 rows over a 256-entry ring at depths
+    17..300 (one wrapped) and an idle row (all -1: the mean of V)."""
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, c, h = 8, 256, g * kh
+    depth = torch.tensor([256, 200, 128, 64, 33, 17, 300, 0],
+                         dtype=torch.int32, device=dev)
+    idx = torch.arange(c, dtype=torch.int32, device=dev)
+    newest = (depth[:, None] - 1 - idx) // c * c + idx
+    kv_pos = torch.where(newest >= 0, newest, -1).to(torch.int32)
+    q_pos = (depth - 1).clamp_min(0)
+    q = torch.randn(b, h, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(b, c, kh, hd, generator=gen, device=dev).to(dtype)
+            for _ in "kv")
+    got = da.flash_decode(q, k, v, kv_pos, q_pos)
+    want = da.flash_decode_plain(q, k, v, kv_pos, q_pos)
+    torch.cuda.synchronize()
+    _attn_close(got, want, dtype)
+    _attn_close(got[-1], v[-1].float().mean(0).repeat_interleave(g, 0),
+                dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [8, 64, 512])
+@pytest.mark.parametrize("d_in,d_out", [(896, 128), (896, 896),
+                                        (896, 4864), (4864, 896)])
+def test_cuda_sgmv_rank16_qwen2_shapes(dev, dtype, t, d_in, d_out):
+    """qwen2-0.5b's LoRA: rank 16 over a 32-slot pool, d_in 896 / 4864,
+    d_out 128 (k, v), 896 and 4864, at the decode rows (8) and prefill
+    groups (64, 512); the plan's ``n_used`` as the main path passes it.
+    Each kernel within 1e-5 of max|plain|, ``ops.sgmv`` within the
+    activation type's rounding of the reference oracle."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(14)
+    r, n_pool = 16, 32
+    x = torch.randn(t, d_in, generator=gen, device=dev).to(dtype)
+    a = torch.randn(n_pool, r, d_in, generator=gen, device=dev) / r ** 0.5
+    b = torch.randn(n_pool, d_out, r, generator=gen, device=dev) * 0.01
+    slots = torch.randint(0, n_pool, (t,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    blk_t = ops.auto_blk_t(t, n_pool)
+    plan = ops.plan_grouping(slots, n_pool, blk_t)
+    xbuf = x.new_zeros((plan.n_padded, d_in))
+    xbuf[plan.padded_pos.long()] = x[plan.perm]
+    bs, nu = plan.block_slots, plan.n_used
+    s = sgmv.sgmv_shrink(xbuf, a, bs, blk_t=blk_t, n_used=nu)
+    _sgmv_close(s, sgmv.shrink_plain(xbuf, a, bs, blk_t=blk_t, n_used=nu))
+    y = sgmv.sgmv_expand(s, b, bs, blk_t=blk_t, compute_dtype=dtype,
+                         n_used=nu)
+    _sgmv_close(y, sgmv.expand_plain(s, b, bs, blk_t=blk_t,
+                                     compute_dtype=dtype, n_used=nu))
+    got = ops.sgmv(x, a, b, slots, 2.0, n_slots=n_pool, blk_t=None)
+    want = (2.0 * ref.sgmv_ref(x, a.to(dtype), b.to(dtype), slots,
+                               1.0)).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+def _captured_step(dev, policy, kv, step):
+    """Serve a short trace on the reduced qwen2-0.5b (bf16, QKV bias, the
+    SGMV and attention kernels) and capture the engine's first call of
+    ``step``: (engine, step function, args, its output tokens)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
+    from repro_torch.serving.workload import WorkloadConfig, generate_trace
+    cfg = dataclasses.replace(reduced_config(get_config("qwen2-0.5b")),
+                              dtype="bfloat16")
+    eng = EdgeLoRAEngine(cfg, EngineConfig(
+        n_slots=4, max_ctx=64, prompt_buckets=(16, 32), policy=policy,
+        kv_backend=kv, memory_budget=1e12, lora_backend="sgmv"), device=dev)
+    fn, seen = getattr(eng, step), {}
+
+    def keep(a):
+        """A copy of the step's inputs (the caches are written in place)."""
+        if isinstance(a, dict):
+            return {k: keep(v) for k, v in a.items()}
+        if isinstance(a, tuple):
+            return tuple(keep(v) for v in a)
+        return a.clone() if torch.is_tensor(a) else a
+
+    def capture(*args, **kw):
+        inputs = None if seen else keep(args)
+        out = fn(*args, **kw)
+        if inputs is not None:
+            seen.update(args=inputs, kw=kw, tokens=out[0].clone())
+        return out
+
+    setattr(eng, step, capture)
+    trace = generate_trace(WorkloadConfig(
+        n_adapters=cfg.lora.n_adapters, request_rate=20.0, duration=0.5,
+        input_range=(4, 30), output_range=(3, 6),
+        vocab_size=cfg.vocab_size, seed=0))
+    eng.serve(trace)
+    assert seen, f"{step} never ran"
+    return fn, seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,kv,step", [
+    ("edgelora", "dense", "_prefill"),
+    ("edgelora", "paged", "_prefill"),
+    ("edgelora", "paged", "_decode_paged"),
+    ("llamacpp", "dense", "_decode_merged"),
+    ("llamacpp", "paged", "_decode_merged_paged"),
+    ("llamacpp", "paged", "_prefill_merged"),
+])
+def test_cuda_engine_steps_make_no_host_sync(dev, policy, kv, step):
+    """Whole engine steps on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: a prefill step (the SGMV
+    kernels and ``flash_prefill``), the paged decode step (with
+    ``paged_gather_pages``) and the merged decode and prefill steps (no
+    LoRA). The first call's inputs rerun under the mode give the same
+    tokens; the merged steps launch no SGMV kernel."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import paged_gather as pg
+    fn, seen = _captured_step(dev, policy, kv, step)
+    for mod in (sgmv, da, fp, pg):
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tokens, _ = fn(*seen["args"], **seen["kw"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(tokens, seen["tokens"])
+    n = 2  # reduced config: two layers
+    merged = "merged" in step
+    assert sgmv.launches["sgmv_shrink"] == (0 if merged else 7 * n)
+    attn = fp.launches["flash_prefill"] + da.launches["flash_decode"]
+    assert attn == n
+    assert pg.launches["paged_gather_pages"] == (
+        2 if "decode" in step and kv == "paged" else 0)

@@ -11,7 +11,9 @@
   timing fields included, must be equal.
 * The CLI serves on the CPU when asked to, and nothing outside the
   ported slices degrades silently (the paged arena, prefix cache and
-  chunked prefill: ``tests/test_torch_paged.py``).
+  chunked prefill: ``tests/test_torch_paged.py``; the llamacpp and dlora
+  policies: ``tests/test_torch_policies.py``; tracing:
+  ``tests/test_torch_trace.py``).
 """
 import dataclasses
 import json
@@ -34,7 +36,8 @@ from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.serving import engine as jax_engine  # noqa: E402
 from repro.serving import workload as jax_workload  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.configs import (MoEConfig, get_config,  # noqa: E402
+                                 reduced_config)
 from repro_torch.serving import workload  # noqa: E402
 from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig  # noqa: E402
 
@@ -182,17 +185,25 @@ def _summary_json(summary):
                       default=float)
 
 
+def _unported_cfg(feature):
+    """A config with one feature outside the ported slices."""
+    _, tcfg = _configs()
+    if feature == "gemma2":
+        return reduced_config(get_config("gemma2-9b"))
+    if feature == "kv_cache_quant":
+        return dataclasses.replace(tcfg, attn=dataclasses.replace(
+            tcfg.attn, kv_cache_quant=True))
+    return dataclasses.replace(tcfg, moe=MoEConfig(n_experts=4, top_k=2))
+
+
 @pytest.mark.parametrize("change,msg", [
-    (dict(policy="llamacpp"), "policy 'llamacpp'"),
-    (dict(policy="dlora"), "policy 'dlora'"),
-    (dict(tracer=object()), "tracer"),
+    ("gemma2", "arch 'gemma2-9b'"),
+    ("kv_cache_quant", "kv_cache_quant"),
+    ("moe", "moe"),
 ])
 def test_unported_features_raise(change, msg):
-    _, tcfg = _configs()
-    tracer = change.pop("tracer", None)
     with pytest.raises(NotImplementedError, match=msg):
-        EdgeLoRAEngine(tcfg, EngineConfig(**change), tracer=tracer,
-                       device="cpu")
+        EdgeLoRAEngine(_unported_cfg(change), EngineConfig(), device="cpu")
 
 
 def _run_cli(*args):
