@@ -99,6 +99,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    on/off x sgmv/einsum LoRA), the kernel route's logits held against
    each other route's.
 
+10. The learned router (runs after phase 6, on phase 4's Llama-3.1-8B
+    weights; its data draws token ids from the first 4096 of the
+    vocabulary, the model stays at full width): a router head trained
+    with Table 12's settings (240 prompts of 32 tokens, 4 tasks, 40
+    adapters; 6 epochs on 192, batch 16, lr 3e-3; the BCE must fall) and
+    its top-1 accuracy on the other 48 beside chance and the best static
+    adapter; ``scores_batch`` on [8, 32] with ``flash_prefill`` against
+    plain attention (within 1e-2 of max|plain|; the pooled features
+    within 5e-2), each router call one ``flash_prefill`` launch per layer
+    and nothing else; ``edgelora`` + ``LearnedRouter`` against
+    ``edgelora_no_aas`` on phase 4's trace under the real timer, two
+    serves each in turns (Table 6's first-token ratio), then phase 5's
+    burst arrivals (outputs of 4–12 tokens) under one fake timer with
+    router batching on and off, dense, and on, paged (every serve
+    completes, router steps ≤ requests, paged streams and selections
+    equal dense); a 12-step LoRA fine-tune
+    (``train_loop``, batch 4 × 64, peak lr 5e-3, warmup 2): base params
+    bit-equal after, every LoRA leaf changed, the loss falling, no
+    kernel launched (training differentiates the plain attention), and
+    the adapter's checkpoint round trip exact.
+
 Each serve's kernel launch counts are zeroed just before it and read just
 after; every kernel its path runs must have launched.
 
@@ -1163,6 +1184,307 @@ def prefix_chunk_phase(torch, dev, shared):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the learned router on the card, router-head training, LoRA
+# fine-tuning (Llama-3.1-8B full width, phase 4's weights)
+# ---------------------------------------------------------------------------
+
+# the router's and the trainer's synthetic data draw token ids from the
+# first 4096 of the vocabulary: ``data._task_transition`` builds a vocab x
+# vocab matrix, 100+ GB at 128256 (the reference's own limit); the model
+# stays at full width
+DATA_VOCAB = 4096
+# router scores, flash_prefill vs plain attention over 32 bf16 layers:
+# features pooled over the row and normalised, then an f32 head and a
+# sigmoid; the routes differ by the softmax's bf16 rounding per layer
+# (ATTN_STEP_TOL on logits), which the pooled, squashed scores shrink:
+# held to 1e-2 of max|plain|
+ROUTER_TOL = 1e-2
+
+
+def _counted_router(router, calls):
+    """Record each ``scores_batch`` call's host ms (it ends in a copy to
+    the host, a sync) and the kernel launches it made."""
+    fn = router.scores_batch
+
+    def run(tokens):
+        before = _counts()
+        t = time.perf_counter()
+        out = fn(tokens)
+        calls.append(dict(ms=1e3 * (time.perf_counter() - t),
+                          rows=int(tokens.shape[0]),
+                          width=int(tokens.shape[1]),
+                          launches={k: n - before[k]
+                                    for k, n in _counts().items()}))
+        return out
+    router.scores_batch = run
+    return router
+
+
+def _check_router_calls(where, calls, layers):
+    check(len(calls) > 0, f"{where}: the router was never called")
+    for c in calls:
+        want = dict.fromkeys(c["launches"], 0)
+        want["flash_prefill"] = layers
+        check(c["launches"] == want, f"{where}: a router call launched "
+              f"{c['launches']}, want {layers} flash_prefill and nothing "
+              "else")
+
+
+def learned_router_phase(torch, dev, shared):
+    """Phase 10: router head training and its accuracy, router scores with
+    flash_prefill against plain attention, learned-router serves (Table
+    6's first-token ratio, batched and solo scoring, dense and paged), and
+    a LoRA fine-tune with a checkpoint round trip."""
+    from repro_torch.core.router import LearnedRouter, trunk_features
+    from repro_torch.launch.serve import summary_row
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
+    from repro_torch.serving.workload import WorkloadConfig, generate_trace
+    from repro_torch.training.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.data import (DataConfig, lm_batches,
+                                           router_dataset)
+    from repro_torch.training.optimizer import adamw_init, tree_leaves
+    from repro_torch.training.router_train import (router_accuracy,
+                                                   train_router)
+    from repro_torch.training.train import TrainState, train_loop
+
+    cfg, layers = shared["cfg"], LLAMA_SPEC["layers"]
+    n_adapters = cfg.lora.n_adapters
+    out = {}
+    # the kernel route and the plain one on the same (shared) weights
+    model = build_model(cfg, dev, attn_kernel=True)
+    params = model.load_params(shared["params"])
+    plain_model = build_model(cfg, dev, attn_kernel=False)
+    plain_model.load_params(shared["params"])
+
+    # ---- 10.1 router head: Table 12's settings --------------------------
+    t0 = time.perf_counter()
+    prompts, labels, _ = router_dataset(
+        DataConfig(vocab_size=DATA_VOCAB, seq_len=32, batch_size=4,
+                   n_tasks=4), n_adapters=n_adapters, n_samples=240)
+    data_s = time.perf_counter() - t0
+    bces = []
+    _reset_counts()
+    t0 = time.perf_counter()
+    head, _ = train_router(
+        model, params, prompts[:192], labels[:192], epochs=6,
+        batch_size=16, lr=3e-3,
+        generator=torch.Generator(device=dev).manual_seed(0),
+        log_fn=lambda s: bces.append(float(s.rsplit(" ", 1)[1])))
+    acc = router_accuracy(model, params, head, prompts[192:], labels[192:])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = _counts()
+    static = float(labels[192:].mean(0).max())
+    chance = float(labels[192:].mean())
+    check(len(bces) == 6 and bces[-1] < bces[0],
+          f"router BCE did not fall over its epochs: {bces}")
+    # 12 feature batches for training, 3 for the accuracy: one
+    # flash_prefill launch per layer each
+    check(train_launches["flash_prefill"] == 15 * layers,
+          f"router training launched {train_launches}")
+    out["router_train"] = dict(
+        accuracy=acc, best_static=static, chance=chance, bce_by_epoch=bces,
+        data_s=data_s, train_s=train_s, launches=train_launches)
+    log(f"router head: top-1 accuracy {acc:.3f} on 48 held-out prompts "
+        f"(best static adapter {static:.3f}, chance {chance:.3f}); BCE by "
+        f"epoch {[round(b, 4) for b in bces]}; data {data_s:.1f}s, "
+        f"features + 6 epochs + accuracy {train_s:.1f}s")
+
+    # ---- 10.2 router scores: flash_prefill vs plain attention -----------
+    tokens = torch.as_tensor(prompts[192:200], device=dev)
+    router = LearnedRouter(model, params, head)
+    plain = LearnedRouter(plain_model, plain_model.params, head)
+    calls = []
+    _counted_router(router, calls).scores_batch(tokens)
+    _check_router_calls("scores_batch [8, 32]", calls, layers)
+    want = plain.scores_batch(tokens)
+    got = router.scores_batch(tokens)
+    err = float(abs(got - want).max())
+    check(err <= ROUTER_TOL * float(abs(want).max()),
+          f"router scores: kernel vs plain max abs err {err}")
+    # the pooled features under the scores: a saturated sigmoid would
+    # hide a difference there
+    with torch.inference_mode():
+        feats = {m.attn_kernel: trunk_features(m, m.params, tokens)
+                 for m in (model, plain_model)}
+    feat_err = float((feats[True] - feats[False]).abs().max()
+                     / feats[False].abs().max())
+    check(feat_err <= ATTN_STEP_TOL, f"router features: kernel vs plain "
+          f"{feat_err:.3e} of max|plain|")
+    # a top-1 flip on a near tie inside the tolerance is no fault: counted
+    same_top1 = int((got.argmax(-1) == want.argmax(-1)).sum())
+    kern_ms = host_ms(torch, lambda: router.scores_batch(tokens), iters=10)
+    plain_ms = host_ms(torch, lambda: plain.scores_batch(tokens), iters=10)
+    out["scores"] = dict(max_abs_err=err, max_plain=float(abs(want).max()),
+                         feature_err=feat_err, same_top1=same_top1,
+                         ms=kern_ms, plain_ms=plain_ms,
+                         launches=calls[0]["launches"])
+    log(f"router scores [8, 32]: kernel vs plain max abs err {err:.2e} "
+        f"(max|plain| {float(abs(want).max()):.3f}; pooled features "
+        f"{feat_err:.2e} of max|plain|), top-1 equal on "
+        f"{same_top1}/8 rows; {kern_ms:.1f} ms per "
+        f"call with flash_prefill, {plain_ms:.1f} ms plain; launches per "
+        f"call {calls[0]['launches']}")
+    del plain, plain_model
+    _release(torch)
+
+    # ---- 10.3 learned-router serves ---------------------------------------
+    def serve(policy, trace, timer=None, **kw):
+        calls = []
+        r = (_counted_router(LearnedRouter(model, params, head), calls)
+             if policy == "edgelora" else None)
+        ecfg = EngineConfig(n_slots=N_SLOTS, top_k=1, policy=policy,
+                            max_ctx=MAX_CTX, prompt_buckets=(32, 64),
+                            lora_backend="auto", kv_block_size=KV_BLOCK,
+                            seed=0, **kw)
+        engine = EdgeLoRAEngine(cfg, ecfg, router=r, params=params,
+                                device=dev,
+                                adapter_source=shared["adapter_source"],
+                                timer=timer)
+        _reset_counts()
+        t0 = time.perf_counter()
+        summary = engine.serve(trace)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = _counts()
+        where = f"{policy} {kw}"
+        check(summary.n_completed == summary.n_requests == len(trace),
+              f"{where}: completed {summary.n_completed}/"
+              f"{summary.n_requests}")
+        if r is not None:
+            _check_router_calls(where, calls, layers)
+            check(0 < summary.router_steps <= len(trace),
+                  f"{where}: {summary.router_steps} router steps for "
+                  f"{len(trace)} requests")
+        res = dict(
+            requests=len(trace), serve_s=serve_s, launches=launches,
+            router_steps=summary.router_steps,
+            router_calls=len(calls),
+            router_ms=[c["ms"] for c in calls],
+            router_rows=[c["rows"] for c in calls],
+            avg_first_token=summary.avg_first_token,
+            row=summary_row(policy, n_adapters, summary),
+            streams={q.request_id: list(q.tokens) for q in trace},
+            selected={q.request_id: q.selected_adapter for q in trace})
+        log(f"  {where}: {res['row']}")
+        log(f"    {len(trace)} requests in {serve_s:.1f}s wall; "
+            f"{summary.router_steps} router steps ({len(calls)} calls with "
+            f"warm-ups), rows {res['router_rows']}; launches {launches}")
+        del engine
+        _release(torch)
+        return res
+
+    wl = dict(n_adapters=n_adapters, input_range=(8, 64),
+              vocab_size=cfg.vocab_size)
+    t0 = time.perf_counter()
+    # Table 6 under the real timer, phase 4's trace, in turns (without,
+    # with, with, without): the host's noise between serves is of the
+    # router's size
+    real = {}
+    for i, p in enumerate(("edgelora_no_aas", "edgelora", "edgelora",
+                           "edgelora_no_aas")):
+        real[f"{p}_{i}"] = serve(p, generate_trace(WorkloadConfig(
+            request_rate=4.0, duration=3.0, output_range=(8, 32), seed=0,
+            **wl)))
+    ttft = {p: _mean([r["avg_first_token"] for k, r in real.items()
+                      if k.rsplit("_", 1)[0] == p])
+            for p in ("edgelora", "edgelora_no_aas")}
+    ratio = ttft["edgelora"] / ttft["edgelora_no_aas"]
+    log(f"table6_learned/aas_overhead: first_token_ratio={ratio:.2f}x "
+        f"(edgelora + LearnedRouter {1e3 * ttft['edgelora']:.1f} ms vs "
+        f"edgelora_no_aas {1e3 * ttft['edgelora_no_aas']:.1f} ms mean "
+        "first token, real timer, two serves each in turns: "
+        + ", ".join(f"{k} {1e3 * r['avg_first_token']:.1f}"
+                    for k, r in real.items()) + ")")
+    # phase 5's burst arrivals, shorter outputs (the router acts before
+    # the first token)
+    burst = {}
+    for name, kw in (("batched_dense", dict(router_batching=True)),
+                     ("solo_dense", dict(router_batching=False)),
+                     ("batched_paged", dict(router_batching=True,
+                                            kv_backend="paged"))):
+        burst[name] = serve("edgelora", generate_trace(WorkloadConfig(
+            request_rate=200.0, duration=0.05, output_range=(4, 12),
+            seed=1, **wl)), timer=FakeTime(), **kw)
+    check(burst["batched_paged"]["streams"]
+          == burst["batched_dense"]["streams"]
+          and burst["batched_paged"]["selected"]
+          == burst["batched_dense"]["selected"],
+          "learned router: paged and dense serves differ under one timer")
+    check(max(burst["batched_dense"]["router_rows"]) > 1,
+          "router batching formed no group of more than one row")
+    same = sum(burst["solo_dense"]["selected"][k] == v
+               for k, v in burst["batched_dense"]["selected"].items())
+    log(f"learned-router serves {time.perf_counter() - t0:.1f}s; batched "
+        f"vs solo scoring select alike for {same}/"
+        f"{len(burst['solo_dense']['selected'])} requests (not required: "
+        "the scores are computed at other batch shapes)")
+    out["serves"] = dict(real=real, burst=burst, first_token_ratio=ratio,
+                         avg_first_token=ttft,
+                         batched_solo_same_selection=same)
+
+    # ---- 10.4 LoRA fine-tune ---------------------------------------------
+    lora = model.init_lora(torch.Generator(device=dev).manual_seed(1))
+    state = TrainState(params, lora, adamw_init(lora))
+    base = [t.clone() for t in tree_leaves(params)]
+    lora0 = [t.clone() for t in tree_leaves(lora)]
+    stamps = []
+
+    def log_step(s):
+        stamps.append(time.perf_counter())
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    state, history = train_loop(
+        model, lm_batches(DataConfig(vocab_size=DATA_VOCAB, seq_len=64,
+                                     batch_size=4)),
+        12, state=state, peak_lr=5e-3, warmup=2, log_every=1,
+        log_fn=log_step)
+    train_s = time.perf_counter() - t0
+    launches = _counts()
+    losses = [loss for _, loss in history]
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    check(len(losses) == 12 and (losses[-1] + losses[-2]) / 2 < losses[0],
+          f"LoRA fine-tune: loss did not fall: {losses}")
+    check(all(torch.equal(a, b) for a, b in zip(base,
+                                                tree_leaves(state.params))),
+          "LoRA fine-tune changed the base params")
+    check(not any(t.requires_grad for t in tree_leaves(state.params)),
+          "base params require grad")
+    check(all(not torch.equal(a, b) for a, b in zip(
+        lora0, tree_leaves(state.lora))), "a LoRA leaf did not change")
+    check(set(launches.values()) == {0},
+          f"the train steps launched a kernel: {launches}")
+    del base, lora0
+    path = ROOT / "chiprun_out" / "phase10_adapter.npz"
+    t1 = time.perf_counter()
+    try:
+        save_checkpoint(str(path), state.lora)
+        back = load_checkpoint(str(path), state.lora)
+        nbytes = path.stat().st_size
+    finally:
+        path.unlink(missing_ok=True)
+    ckpt_s = time.perf_counter() - t1
+    check(all(a.dtype == b.dtype and a.device == b.device
+              and torch.equal(a, b)
+              for a, b in zip(tree_leaves(back), tree_leaves(state.lora))),
+          "adapter checkpoint round trip is not exact")
+    out["finetune"] = dict(losses=losses, step_ms=step_ms, train_s=train_s,
+                           launches=launches, checkpoint_bytes=nbytes,
+                           checkpoint_s=ckpt_s)
+    log(f"LoRA fine-tune: 12 steps in {train_s:.1f}s, loss "
+        f"{[round(x, 3) for x in losses]}; ms per step (after the first) "
+        f"mean {_mean(step_ms):.1f}; base params bit-equal, every LoRA "
+        f"leaf changed, no kernel launched; checkpoint "
+        f"{nbytes / 1e6:.0f} MB saved and loaded exactly in {ckpt_s:.1f}s")
+    del state, back, router, model
+    _release(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 7-9: qwen2-0.5b under every policy, tracing, an overcommitted
 # arena; full-width steps of qwen2-0.5b, llama3.2-3b and openelm-1.1b
 # ---------------------------------------------------------------------------
@@ -1745,6 +2067,12 @@ def main(argv=None) -> int:
     paged = paged_compare_phase(torch, dev, shared)
     prefix = prefix_chunk_phase(torch, dev, shared)
     log(f"paged phases {time.perf_counter() - t0:.1f}s")
+    _release(torch)
+
+    # ---- 10. learned router, router training, LoRA fine-tune ------------
+    t0 = time.perf_counter()
+    learned = learned_router_phase(torch, dev, shared)
+    log(f"learned-router phase {time.perf_counter() - t0:.1f}s")
     del shared
     _release(torch)
 
@@ -1766,6 +2094,10 @@ def main(argv=None) -> int:
               "paged_compare_paged": paged["paged"]["launches"],
               "prefix_chunk": prefix["launches"],
               "qwen2_traced": qwen2["traced"]["launches"]}
+    for key, run in learned["serves"]["real"].items():
+        serves[f"learned_{key}"] = run["launches"]
+    for key, run in learned["serves"]["burst"].items():
+        serves[f"learned_edgelora_{key}"] = run["launches"]
     for key, runs in qwen2.items():
         if isinstance(runs, dict) and "dense" in runs:
             for kv, run in runs.items():
@@ -1853,7 +2185,7 @@ def main(argv=None) -> int:
              paged_compare=paged, prefix_chunk=prefix,
              qwen2_kernel_rows=q_rows, qwen2_gather_rows=q_gather,
              qwen2_attention_rows=q_attention, qwen2=qwen2,
-             route_checks=routes,
+             route_checks=routes, learned_router=learned,
              seconds=time.perf_counter() - t_start), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

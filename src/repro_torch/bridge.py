@@ -7,7 +7,10 @@ arrays onto the port's tensors path for path.
 
     params_from_numpy(model, tree)   -> registers the Model's parameters
     lora_pool_from_numpy(tree)       -> stacked pool, leaves [ng, R, r, d]
+                                        (or one adapter, leaves [ng, r, d])
     cache_from_numpy(tree)           -> KV cache, leaves [ng, B, C, ...]
+    router_head_from_numpy(head)     -> {'w': [d, n_adapters], 'b'} f32
+    adamw_state_from_numpy(state)    -> AdamWState (step, mu, nu)
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.training.optimizer import AdamWState
 
 
 def tensor_from_numpy(a: np.ndarray, device: Any = "cpu") -> torch.Tensor:
@@ -48,3 +52,16 @@ def lora_pool_from_numpy(tree: Dict, device: Any = "cpu") -> Dict:
 def cache_from_numpy(tree: Dict, device: Any = "cpu") -> Dict:
     """A KV cache tree (k, v and the int32 pos leaves) as tensors."""
     return tree_from_numpy(tree, device)
+
+
+def router_head_from_numpy(head: Dict, device: Any = "cpu") -> Dict:
+    """A router head {'w': [d_model, n_adapters], 'b': [n_adapters]}."""
+    return tree_from_numpy(head, device)
+
+
+def adamw_state_from_numpy(state: Any, device: Any = "cpu") -> AdamWState:
+    """The reference's ``AdamWState`` with numpy leaves (its step, first
+    and second moment trees) as the port's."""
+    step, mu, nu = state
+    return AdamWState(tensor_from_numpy(np.asarray(step, np.int32), device),
+                      tree_from_numpy(mu, device), tree_from_numpy(nu, device))

@@ -26,12 +26,28 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise if autograd would need a kernel's backward. The kernels fill
+    their outputs through ctypes, out of autograd's sight: an output
+    would carry no ``grad_fn`` and its inputs' gradients would be
+    silently zero. (The plain versions, which CPU tensors take, stay
+    differentiable.)"""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the CUDA kernel has no "
+            "backward; run it under torch.no_grad() / inference_mode(), "
+            "or take the plain PyTorch route to differentiate")
 
 
 def nvcc() -> str:

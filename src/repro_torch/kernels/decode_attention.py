@@ -22,7 +22,8 @@ source's note.
 
 The wrapper takes the plain PyTorch version (``flash_decode_plain``)
 only for a tensor on the CPU. For a CUDA tensor it launches the kernel or
-raises. ``launches`` counts wrapper calls that launch the kernel (one,
+raises (also for an input that requires grad: the kernel has no
+backward, ``_build.refuse_grad``). ``launches`` counts wrapper calls that launch the kernel (one,
 whether the call makes one CUDA launch or two).
 """
 from __future__ import annotations
@@ -161,6 +162,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: expected CUDA or CPU tensors, got "
                          f"{q.device}")
+    _build.refuse_grad("flash_decode", q, k, v, k_scale, v_scale)
     quant = k_scale is not None
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_decode: q must be float32 or bfloat16, got "

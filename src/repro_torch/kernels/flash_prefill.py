@@ -22,7 +22,8 @@ f32 path that meets f32's tolerance.
 
 The wrapper takes the plain PyTorch version (``flash_prefill_plain``)
 only for a tensor on the CPU. For a CUDA tensor it launches the kernel or
-raises. ``launches`` counts kernel launches.
+raises (also for an input that requires grad: the kernel has no
+backward, ``_build.refuse_grad``). ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -130,6 +131,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    causal=causal, window=window,
                                    chunked=chunked, softcap=softcap)
     _check(q, k, v, qpos, kpos, window, softcap)
+    _build.refuse_grad("flash_prefill", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: expected CUDA or CPU tensors, got "
                          f"{q.device}")

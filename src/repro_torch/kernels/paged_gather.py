@@ -20,7 +20,8 @@ row, so any arena dtype works.
 
 The wrapper takes the plain PyTorch version (``paged_gather_pages_plain``)
 only for a tensor on the CPU. For a CUDA tensor it launches the kernel or
-raises. ``launches`` counts kernel launches.
+raises (also for an input that requires grad: the kernel has no
+backward, ``_build.refuse_grad``). ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -87,6 +88,7 @@ def paged_gather_pages(arena: torch.Tensor,
     if arena.device.type != "cuda":
         raise ValueError(f"paged_gather_pages: expected CUDA or CPU tensors, "
                          f"got {arena.device}")
+    _build.refuse_grad("paged_gather_pages", arena)
     if tables.dtype != torch.int32:
         raise TypeError("paged_gather_pages: tables must be int32")
     if not (arena.is_contiguous() and tables.is_contiguous()):

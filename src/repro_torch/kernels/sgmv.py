@@ -27,7 +27,8 @@ finish sums the splits' partials in split order (deterministic).
 tiles of outputs and 16-byte stores. See the source's note.
 
 Each wrapper takes the plain PyTorch version (``*_plain``) only for a
-tensor on the CPU. For a CUDA tensor it launches the kernel or raises;
+tensor on the CPU. For a CUDA tensor it launches the kernel or raises
+(also for an input that requires grad: the kernels have no backward);
 the kernels take the adapter pool in f32 only, the serving pool's dtype
 (``init_lora_stack``), ranks up to ``MAX_RANK`` and blocks of up to
 ``MAX_BLK_T`` rows. ``launches`` counts kernel launches per wrapper.
@@ -247,6 +248,7 @@ def sgmv_shrink(x: torch.Tensor, a_stack: torch.Tensor,
         return shrink_plain(x, a_stack, block_slots, blk_t=blk_t,
                             n_used=n_used)
     _check_cuda("sgmv_shrink", a_stack, blk_t, r, x, block_slots)
+    _build.refuse_grad("sgmv_shrink", x, a_stack)
     if block_slots.dtype != torch.int32:
         raise TypeError("sgmv_shrink: block_slots must be int32")
     code = _code("sgmv_shrink", x.dtype)
@@ -284,6 +286,7 @@ def sgmv_expand(s: torch.Tensor, b_stack: torch.Tensor,
         return expand_plain(s, b_stack, block_slots, blk_t=blk_t,
                             compute_dtype=compute_dtype, n_used=n_used)
     _check_cuda("sgmv_expand", b_stack, blk_t, r, s, block_slots)
+    _build.refuse_grad("sgmv_expand", s, b_stack)
     if s.dtype != torch.float32 or block_slots.dtype != torch.int32:
         raise TypeError("sgmv_expand: s must be float32 and block_slots "
                         "int32")

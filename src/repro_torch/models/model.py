@@ -3,14 +3,15 @@
 ``Model`` is an ``nn.Module`` whose ``weights`` child mirrors the JAX
 param tree path for path (``weights.layers.slot0.attn.wq`` is
 ``params['layers']['slot0']['attn']['wq']``, stacked ``[n_groups,
-...]``), so weights carry across unchanged. The forward functions keep the reference's signatures and take the
-params as a nested dict (``Model.params`` is that view of the module's
-own parameters); the serving engine calls ``prefill`` and
-``decode_step`` (and, with the paged KV arena, the prefix cache or
-chunked prefill, ``prefill_suffix``, ``prefill_suffix_dense`` and
-``decode_step_paged``) with a ``LoRAMode`` carrying per-request adapter
-slots. ``attn_kernel`` (a field, set at construction) routes every
-step's attention through the ``flash_prefill`` / ``flash_decode``
+...]``), so weights carry across unchanged. The forward functions keep
+the reference's signatures and take the params as a nested dict
+(``Model.params`` is that view of the module's own parameters); the
+serving engine calls ``prefill`` and ``decode_step`` (and, with the
+paged KV arena, the prefix cache or chunked prefill, ``prefill_suffix``,
+``prefill_suffix_dense`` and ``decode_step_paged``) with a ``LoRAMode``
+carrying per-request adapter slots; training and the learned router
+call ``forward``. ``attn_kernel`` (a field, set at construction) routes
+every step's attention through the ``flash_prefill`` / ``flash_decode``
 kernels instead of the plain PyTorch code; on CPU tensors the kernel
 wrappers run their plain versions.
 """
@@ -163,6 +164,27 @@ class Model(nn.Module):
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         return unembed(h, head, tied=cfg.tie_embeddings,
                        softcap=cfg.final_logit_softcap)
+
+    # ------------------------------------------------------------------
+    # full-sequence forward (training / scoring)
+    # ------------------------------------------------------------------
+
+    def forward(self, params: Dict, batch: Dict[str, torch.Tensor],
+                lora: Optional[Dict] = None,
+                lora_mode: LoRAMode = LoRAMode(),
+                opts: Optional[Dict] = None, *, attn_kernel: bool
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {'tokens': [B, S]}. Returns (logits [B, S, V], aux
+        losses). ``attn_kernel`` is the caller's choice, not the model's
+        field: training differentiates the plain attention (the kernels
+        have no backward), scoring may take the kernel."""
+        tokens = batch["tokens"]
+        x = self.embed(params, tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        h, aux = transformer.forward_stack(params, x, self.cfg, positions,
+                                           lora, lora_mode, opts,
+                                           attn_kernel=attn_kernel)
+        return self.logits(params, h), aux
 
     # ------------------------------------------------------------------
     # serving: cache, prefill, decode

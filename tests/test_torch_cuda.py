@@ -816,3 +816,110 @@ def test_cuda_engine_steps_make_no_host_sync(dev, policy, kv, step):
     assert attn == n
     assert pg.launches["paged_gather_pages"] == (
         2 if "decode" in step and kv == "paged" else 0)
+
+
+# ---------------------------------------------------------------------------
+# no silent gradients; the learned router's trunk on the kernel
+# ---------------------------------------------------------------------------
+
+
+def _grad_cases(dev):
+    """(name, call) for every kernel wrapper, its first float input
+    requiring grad."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q4, k4 = randn(2, 16, 4, 64), randn(2, 16, 2, 64)
+    q3, ring = randn(2, 4, 64), randn(2, 32, 2, 64)
+    kv_pos = torch.arange(32, dtype=torch.int32, device=dev).repeat(2, 1)
+    q_pos = torch.full((2,), 31, dtype=torch.int32, device=dev)
+    x, s, a, b, bs = _sgmv_problem(dev, torch.bfloat16, 8, 16, 256, 128)
+    arena = randn(2, 6, 16, 128)
+    tables = torch.tensor([[0, 2], [5, -1]], dtype=torch.int32, device=dev)
+    return [
+        ("flash_prefill", lambda g: fp.flash_prefill(
+            q4.requires_grad_(g), k4, k4)),
+        ("flash_decode", lambda g: da.flash_decode(
+            q3.requires_grad_(g), ring, ring, kv_pos, q_pos)),
+        ("sgmv_shrink", lambda g: sgmv.sgmv_shrink(
+            x.requires_grad_(g), a, bs, blk_t=8)),
+        ("sgmv_expand", lambda g: sgmv.sgmv_expand(
+            s, b.requires_grad_(g), bs, blk_t=8,
+            compute_dtype=torch.bfloat16)),
+        ("paged_gather_pages", lambda g: paged_gather.paged_gather_pages(
+            arena.requires_grad_(g), tables)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", range(5))
+def test_cuda_wrappers_refuse_grad(dev, i):
+    """An input that requires grad, with autograd on: the wrapper raises
+    (its output would carry no grad_fn) and launches nothing. Under
+    ``no_grad`` or with no input requiring grad it launches once."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    name, call = _grad_cases(dev)[i]
+    counts = {**sgmv.launches, **paged_gather.launches, **da.launches,
+              **fp.launches}
+    mods = (sgmv, paged_gather, da, fp)
+    for m in mods:
+        m.reset_launches()
+    try:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call(True)
+        assert all(n == 0 for m in mods for n in m.launches.values())
+        with torch.no_grad():
+            out = call(True)
+        assert out.grad_fn is None
+        call(False)
+        torch.cuda.synchronize()
+        launched = {k: n for m in mods for k, n in m.launches.items() if n}
+        assert launched == {name: 2}
+    finally:
+        for m in mods:
+            m.launches.update({k: counts[k] for k in m.launches})
+
+
+@pytest.mark.cuda
+def test_cuda_router_scores_kernel_matches_plain(dev):
+    """``LearnedRouter.scores_batch`` at Llama-3.1-8B's width cut to two
+    layers, bf16, fan-in-scaled random weights: the ``flash_prefill``
+    route within 1e-2 of max|plain| of the plain attention route; one
+    ``flash_prefill`` launch per layer per call and no SGMV launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.router import LearnedRouter
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models import build_model
+    from repro_torch.training.router_train import init_router_head
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    plain = build_model(cfg, dev)
+    params = plain.init(gen)
+    with torch.no_grad():
+        for slot in params["layers"].values():
+            for module in slot.values():
+                for w in module.values():
+                    if w.dim() == 3:
+                        w.mul_((w.shape[0] / w.shape[-2]) ** 0.5)
+    kern = build_model(cfg, dev, attn_kernel=True)
+    kern.load_params(params)
+    head = init_router_head(gen, cfg.d_model, 40)
+    # w ~ N(0, 1/d) over unit-RMS features: logits of order one, so the
+    # sigmoid does not saturate and hide a difference
+    head["w"].mul_(1 / (0.02 * cfg.d_model ** 0.5))
+    tokens = torch.randint(0, 4096, (8, 32), generator=gen, device=dev,
+                           dtype=torch.int32)
+    want = LearnedRouter(plain, params, head).scores_batch(tokens)
+    fp.reset_launches()
+    sgmv.reset_launches()
+    got = LearnedRouter(kern, kern.params, head).scores_batch(tokens)
+    assert fp.launches == {"flash_prefill": cfg.n_layers}
+    assert set(sgmv.launches.values()) == {0}
+    assert got.shape == want.shape == (8, 40)
+    err = float(abs(got - want).max())
+    assert err <= 1e-2 * float(abs(want).max()), err

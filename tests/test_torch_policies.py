@@ -107,17 +107,19 @@ def trace_kwargs(cfg, seed=0, rate=4.0, duration=3.0, input_range=(4, 20),
 
 
 def serve_pair(monkeypatch, weights, ecfg, wl, *, n_adapters=N_ADAPTERS,
-               tracers=(None, None)):
+               tracers=(None, None), routers=(None, None)):
     """Serve one trace in the reference's engine and in the port's, each
-    under a fresh fake timer. Returns ((summary, trace, engine) of the
-    reference, the same of the port)."""
+    under a fresh fake timer (and each with its router, if given).
+    Returns ((summary, trace, engine) of the reference, the same of the
+    port)."""
     jcfg, tcfg = configs(n_adapters)
     monkeypatch.setattr(
         jax_engine.EdgeLoRAEngine, "_adapter_host",
         lambda self, aid: jax.tree.map(jnp.asarray, weights.adapters[aid]))
     jeng = jax_engine.EdgeLoRAEngine(
         jcfg, jax_engine.EngineConfig(**ecfg),
-        params=jax.tree.map(jnp.asarray, weights.params), tracer=tracers[0])
+        params=jax.tree.map(jnp.asarray, weights.params), tracer=tracers[0],
+        router=routers[0])
     monkeypatch.setattr("repro.serving.engine.time", _FakeTime())
     jtrace = jax_workload.generate_trace(jax_workload.WorkloadConfig(**wl))
     jsum = jeng.serve(jtrace)
@@ -125,7 +127,7 @@ def serve_pair(monkeypatch, weights, ecfg, wl, *, n_adapters=N_ADAPTERS,
     teng = torch_engine.EdgeLoRAEngine(
         tcfg, torch_engine.EngineConfig(**ecfg),
         params=bridge.tree_from_numpy(weights.params), tracer=tracers[1],
-        device="cpu", timer=_FakeTime(),
+        router=routers[1], device="cpu", timer=_FakeTime(),
         adapter_source=lambda aid: bridge.lora_pool_from_numpy(
             weights.adapters[aid]))
     ttrace = workload.generate_trace(workload.WorkloadConfig(**wl))
