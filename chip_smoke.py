@@ -93,11 +93,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    helper imports resolved to the port's jax-free copies). Then an
    ``edgelora`` serve on an overcommitted arena (24 pages, a seventh of
    dense capacity) with the prefix cache: deferrals or preemptions,
-   copy-on-write pages, streams equal to a dense serve's.
+   copy-on-write pages, streams equal to a dense serve's. Then
+   ``llamacpp`` and ``dlora`` (adapter-diverse) over 4 tenants' 32-token
+   system prompts in 32-token chunks, dense (chunked) and paged with the
+   prefix cache: equal streams, prefix hits, llamacpp's merged suffix
+   steps (``_prefill_sfx_dense_merged``, ``_prefill_suffix_merged``)
+   counted, dlora's suffix steps run.
 9. Full-width bf16 steps of qwen2-0.5b, llama3.2-3b and openelm-1.1b:
    one prefill and one decode step on four routes (attention kernels
    on/off x sgmv/einsum LoRA), the kernel route's logits held against
-   each other route's.
+   each other route's, each route's kernel launches held.
 
 10. The learned router (runs after phase 6, on phase 4's Llama-3.1-8B
     weights; its data draws token ids from the first 4096 of the
@@ -119,6 +124,42 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     bit-equal after, every LoRA leaf changed, the loss falling, no
     kernel launched (training differentiates the plain attention), and
     the adapter's checkpoint round trip exact.
+
+11. The dense attention variants at full width (after phase 9), bf16,
+    random weights as ``prepare_weights`` draws them (QK-norm and
+    post-norm scales nonzero; gemma2's tied embedding at 1/sqrt(d), as it
+    scales it up by sqrt(d)). Each model's kernels first, at its shapes,
+    against their plain versions, timed beside them, the library call and
+    the bound: SGMV at its decode widths, ``flash_decode`` over its
+    4096/4608-entry rings (window 4096, softcap 50 for gemma2; gemma2's
+    int8 ring with bf16 scales too, the scales' cast timed apart),
+    ``flash_prefill`` at [2, 4352] past the window (chameleon: [8, 64]),
+    the page gather at gemma2's paged step (bf16 and int8 K pages, bf16
+    scale pages).
+    gemma2-9b (42 layers, d 3584, 16/8 heads, hd 256, d_ff 14336, vocab
+    256000, tied, local/global slots, window 4096, softcaps 50/30,
+    post-norms, scaled embeddings; LoRA rank 16 on 7 modules, a pool of
+    8): a route check (2 rows of 4352 and 4200 tokens, 4 decode steps on
+    the wrapped rings; the kernel route against plain attention and
+    einsum LoRA within ``ROUTE_TOL``, 42 ``flash_prefill`` launches a
+    prefill and 42 ``flash_decode`` a decode step, 294 of each SGMV
+    kernel a step), the same prefill and one decode step with an int8
+    cache against plain attention over the dequantized ring; dense vs
+    paged ``edgelora`` serves of 8 requests (3 prompts of 4100–4400
+    tokens, ``max_ctx`` 4608), bf16 and int8, under one fake timer: equal
+    streams and summaries, 4 page-gather launches per paged decode step
+    (8 with the scales), 294 of each SGMV kernel per unmerged step call;
+    ``prefix_cache`` and ``prefill_chunk`` refused with the reference's
+    ``ValueError``. starcoder2-7b (32 layers, d 4608, 36/4 heads, d_ff
+    18432, vocab 49152, QKV bias, all-local window 4096, non-GLU GELU,
+    untied): the route check at 4352, dense vs paged ``edgelora``, a
+    ``llamacpp`` serve (merged: no SGMV launch; a pool without ``gate``).
+    chameleon-34b at full width and 8 of its 48 layers (64/8 heads, d_ff
+    22016, vocab 65536, QK-norm): the four-route check at [8, 64], an
+    ``edgelora`` serve paged with the prefix cache and 32-token chunks
+    against a dense serve, in bf16 (streams counted: its logits tie in
+    bf16, and the suffix and chunk steps run other GEMM and SGMV shapes
+    than whole-prompt prefills) and in f32 (streams held equal).
 
 Each serve's kernel launch counts are zeroed just before it and read just
 after; every kernel its path runs must have launched.
@@ -146,10 +187,6 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SLEEP_CYCLES = 4_000_000                    # ~2 ms of device time
 R_POOL, RANK, N_SLOTS = 20, 32, 8          # llama3_8b max_resident, rank
 MAX_CTX, KV_BLOCK = 256, 16                 # the serves' max_ctx, page size
-# paged arena at dense-equivalent capacity: ceil(257/16) = 17 pages per
-# sequence, 8 · 17 = 136 pages + the trash page, one leaf per layer
-PAGES_PER_SEQ = -(-(MAX_CTX + 1) // KV_BLOCK)
-N_PAGES = N_SLOTS * PAGES_PER_SEQ + 1
 N_LAYERS, N_HEADS, N_KV_HEADS, HEAD_DIM = 32, 32, 8, 128
 SHRINK_D = (4096, 14336)                    # q,k,v,up in; down in
 EXPAND_D = (4096, 1024, 14336)              # q,down out; k,v out; up out
@@ -332,7 +369,7 @@ def kernel_phase(torch, dev, spec):
               f"max abs err {d:.3e} > {TOL[dtype]:.1e} x {scale:.3e}")
         return d
 
-    for dname in ("bfloat16", "float32"):
+    for dname in spec.get("dtypes", ("bfloat16", "float32")):
         dtype = getattr(torch, dname)
         esize = torch.empty((), dtype=dtype).element_size()
         for phase, t in spec["cases"]:
@@ -440,36 +477,49 @@ def kernel_phase(torch, dev, spec):
 
 def gather_phase(torch, dev, spec):
     """``paged_gather_pages`` against its plain version at the paged
-    decode step's shape of ``spec``'s model, bf16 and f32; timed beside
-    the plain version, ``torch.index_select`` and its bound, with the
-    wrapper's host µs per call."""
+    decode step's shape of ``spec``'s model (one attention leaf: its
+    layers, ``spec['max_ctx']``'s pages; by default bf16 and f32 pages of
+    K, ``spec['gather_cases']`` otherwise: (label, dtype, features per
+    token)); timed beside the plain version, ``torch.index_select`` and
+    its bound, with the wrapper's host µs per call."""
     from repro_torch.kernels import paged_gather as pg
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     _, kh, hd = spec["heads"]
-    ng, bs, feat = spec["layers"], KV_BLOCK, kh * hd
-    b, mb = N_SLOTS, PAGES_PER_SEQ
-    # rows 0-5: distinct shuffled pages for lengths of 1..17 pages, -1
+    # one leaf of one attention slot (its groups' layers), the arena at
+    # dense-equivalent capacity: ceil((max_ctx + 1) / 16) pages per
+    # sequence (17 at max_ctx 256), 8 sequences, + the trash page
+    ng, bs = spec.get("groups", spec["layers"]), KV_BLOCK
+    b, mb = N_SLOTS, -(-(spec.get("max_ctx", MAX_CTX) + 1) // KV_BLOCK)
+    n_pages = N_SLOTS * mb + 1
+    # rows 0-5: distinct shuffled pages for lengths of 1..mb pages, -1
     # past each row's length; row 6 repeats pages; row 7 is idle (all -1)
-    perm = torch.randperm(N_PAGES - 1, generator=gen, device=dev).int()
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev).int()
     tables = torch.full((b, mb), -1, dtype=torch.int32, device=dev)
     used = 0
-    for row, n in enumerate((17, 16, 9, 17, 4, 1)):
+    for row, n in enumerate((mb, mb - 1, mb // 2 + 1, mb, mb // 4, 1)):
         tables[row, :n] = perm[used:used + n]
         used += n
     tables[6, :6] = perm[:3].repeat(2)
     rows = []
-    for dname in ("bfloat16", "float32"):
+    cases = spec.get("gather_cases", (("bfloat16", "bfloat16", kh * hd),
+                                      ("float32", "float32", kh * hd)))
+    for label, dname, feat in cases:
         dtype = getattr(torch, dname)
-        arena = torch.randn(ng, N_PAGES, bs, feat, generator=gen,
-                            device=dev).to(dtype)
+        if dtype == torch.int8:
+            arena = torch.randint(-127, 128, (ng, n_pages, bs, feat),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int8)
+        else:
+            arena = torch.randn(ng, n_pages, bs, feat, generator=gen,
+                                device=dev).to(dtype)
         got = pg.paged_gather_pages(arena, tables)
         want = pg.paged_gather_pages_plain(arena, tables)
         torch.cuda.synchronize()
         check(torch.equal(got, want),
               f"paged_gather_pages {dname} differs from its plain version")
-        idx = (tables.long() % N_PAGES).flatten()
+        idx = (tables.long() % n_pages).flatten()
         lib = torch.index_select(arena, 1, idx).reshape(got.shape)
         check(torch.equal(lib, want), "index_select yardstick differs")
         # bytes the function must move: every distinct page the tables
@@ -478,11 +528,11 @@ def gather_phase(torch, dev, spec):
         distinct = int(torch.unique(idx).numel())
         nbytes = (ng * distinct * page_bytes + got.numel()
                   * got.element_size() + tables.numel() * 4)
-        bnd, by = bound_ms(nbytes, 0.0, dname)
+        bnd, by = bound_ms(nbytes, 0.0, "bfloat16")
         rows.append(dict(
             kernel="paged_gather_pages", model=spec["model"], dtype=dname,
-            ng=ng,
-            n_pages=N_PAGES, bs=bs, F=feat, B=b, MB=mb,
+            leaf=label, ng=ng,
+            n_pages=n_pages, bs=bs, F=feat, B=b, MB=mb,
             distinct_pages=distinct, out_mb=got.numel()
             * got.element_size() / 1e6, max_abs_err=0.0,
             ms=cuda_ms(torch, lambda: pg.paged_gather_pages(arena, tables),
@@ -499,7 +549,7 @@ def gather_phase(torch, dev, spec):
             bound_all_entries_ms=2 * got.numel() * got.element_size()
             / HBM_BYTES_PER_S * 1e3))
         del arena, got, want, lib
-        log(f"paged_gather_pages {dname} ok: " + json.dumps(rows[-1]))
+        log(f"paged_gather_pages {label} ok: " + json.dumps(rows[-1]))
     return rows
 
 
@@ -1502,24 +1552,36 @@ STEP_KINDS = {
 # QKV bias drawn N(0, BIAS_STD^2) (the reference initialises it to zero,
 # which would leave it unexercised): about a tenth of a q, k or v entry
 BIAS_STD = 0.1
+# QK-norm and post-norm scales drawn N(0, NORM_STD^2) (the reference
+# initialises them to zero: a (1 + scale) of exactly one)
+NORM_STD = 0.1
 
 
 def prepare_weights(torch, cfg, params, gen) -> None:
     """In place: stacked weights rescaled from the reference init
-    (stddev 1/sqrt(n_groups)) to fan-in scale 1/sqrt(d_in), QKV biases
-    drawn nonzero, and a tied embedding rescaled to unit stddev (the
-    reference draws it at 1/sqrt(vocab), which through the tied head
-    gives logits of ~0.1 and top-2 ties everywhere)."""
+    (stddev 1/sqrt(n_groups)) to fan-in scale 1/sqrt(d_in), QKV biases,
+    QK-norm and post-norm scales drawn nonzero, and a tied embedding
+    rescaled to unit stddev (the reference draws it at 1/sqrt(vocab),
+    which through the tied head gives logits of ~0.1 and top-2 ties
+    everywhere), or to 1/sqrt(d_model) where the model scales its
+    embedding up by sqrt(d_model) (gemma2: its tied logits then stay
+    inside the final softcap's range instead of saturating it)."""
     with torch.no_grad():
         for slot in params["layers"].values():
-            for module in slot.values():
+            for mod_name, module in slot.items():
+                if mod_name in ("post1", "post2"):
+                    module["scale"].normal_(0.0, NORM_STD, generator=gen)
+                    continue
                 for name, w in module.items():
-                    if w.dim() == 3:
+                    if isinstance(w, dict):             # q_norm, k_norm
+                        w["scale"].normal_(0.0, NORM_STD, generator=gen)
+                    elif w.dim() == 3:
                         w.mul_((w.shape[0] / w.shape[-2]) ** 0.5)
                     elif name in ("bq", "bk", "bv"):
                         w.normal_(0.0, BIAS_STD, generator=gen)
         if cfg.tie_embeddings:
-            params["embed"].mul_(cfg.vocab_size ** 0.5)
+            params["embed"].mul_(cfg.vocab_size ** 0.5 / (
+                cfg.d_model ** 0.5 if cfg.scale_embeddings else 1.0))
 
 
 def make_adapter_source(torch, dev, cfg):
@@ -1563,8 +1625,9 @@ def _count_steps(torch, engine):
 def _check_step_launches(where, calls, spec, paged):
     """Per step call: each SGMV kernel once per LoRA module and layer on
     an unmerged step and never on a merged one; the step's attention
-    kernel once per layer; the page gather twice (k, v) per paged decode
-    step."""
+    kernel once per layer; the page gather once per arena leaf (k, v and,
+    in an int8 cache, their scales; ``spec['gathers']``, default 2) of
+    each attention slot per paged decode step."""
     layers, lora = spec["layers"], spec["layers"] * len(spec["modules"])
     for name, _, got in calls:
         phase, merged = STEP_KINDS[name]
@@ -1572,7 +1635,8 @@ def _check_step_launches(where, calls, spec, paged):
                 "sgmv_expand": 0 if merged else lora,
                 "flash_prefill": layers if phase == "prefill" else 0,
                 "flash_decode": layers if phase == "decode" else 0,
-                "paged_gather_pages": (2 if phase == "decode" and paged
+                "paged_gather_pages": (spec.get("gathers", 2)
+                                       if phase == "decode" and paged
                                        else 0)}
         check(got == want, f"{where}: {name} launched {got}, want {want}")
 
@@ -1610,8 +1674,12 @@ def qwen2_serve(torch, dev, where, engine, trace, spec):
         + ", ".join(f"{k} {len(v)} ({_mean(v):.1f} ms mean)"
                     for k, v in sorted(by.items()))
         + f"; launches {launches}")
+    names = {}
+    for name, _, _ in calls:
+        names[name] = names.get(name, 0) + 1
     return dict(summary=summary, launches=launches, serve_s=serve_s,
                 step_calls={k: len(v) for k, v in by.items()},
+                step_names=names,
                 step_ms_mean={k: _mean(v) for k, v in by.items()},
                 unmerged_calls=sum(not STEP_KINDS[n][1] for n, _, _ in calls),
                 merged_calls=sum(STEP_KINDS[n][1] for n, _, _ in calls),
@@ -1838,6 +1906,47 @@ def qwen2_phase(torch, dev):
     for r in runs.values():
         r["summary"] = dataclasses.asdict(r["summary"])
     out["overcommitted"] = runs
+
+    # ---- llamacpp and dlora with the prefix cache and chunks ----------
+    # 4 tenants' 32-token system prompts, 32-token chunks: a dense serve
+    # (chunked: ``_prefill_sfx_dense*``) against a paged one with the
+    # prefix cache (``_prefill_suffix*``); llamacpp runs merged only, dlora
+    # on adapter-diverse traffic (alpha 0) unmerges
+    chunk = 32
+    sys_wl = dataclasses.replace(tight, duration=0.05, output_range=(4, 16),
+                                 seed=7)
+    for policy, alpha in (("llamacpp", 1.0), ("dlora", 0.0)):
+        wl = dataclasses.replace(sys_wl, alpha=alpha)
+        runs = {}
+        for kv, kw in (("dense", {}), ("paged", dict(prefix_cache=True))):
+            eng = engine(policy, kv, prefill_chunk=chunk, **kw)
+            runs[kv] = qwen2_serve(
+                torch, dev, f"qwen2-0.5b {policy} prefix/chunk {kv}", eng,
+                generate_trace(wl), spec)
+            del eng
+            _release(torch)
+        dense, paged = runs["dense"], runs["paged"]
+        ps = paged["summary"].prefix_stats
+        log(f"  {policy} prefix/chunk: step calls dense "
+            f"{dense['step_names']}, paged {paged['step_names']}; prefix "
+            f"{ps}")
+        check(dense["streams"] == paged["streams"],
+              f"{policy} prefix/chunk: paged vs dense streams differ")
+        check(ps["hit_requests"] > 0, f"{policy}: no prefix hit: {ps}")
+        sfx = {"dense": ("_prefill_sfx_dense", "_prefill_sfx_dense_merged"),
+               "paged": ("_prefill_suffix", "_prefill_suffix_merged")}
+        for kv, r in runs.items():
+            unmerged, merged = (r["step_names"].get(n, 0) for n in sfx[kv])
+            if policy == "llamacpp":
+                check(merged > 0 and unmerged == 0
+                      and r["launches"]["sgmv_shrink"] == 0,
+                      f"llamacpp {kv}: merged suffix steps {merged}, "
+                      f"unmerged {unmerged}")
+            else:
+                check(unmerged + merged > 0 and r["unmerged_calls"] > 0,
+                      f"dlora {kv}: no suffix step or no unmerged step")
+            r["summary"] = dataclasses.asdict(r["summary"])
+        out[f"{policy}_prefix_chunk"] = runs
     return out
 
 
@@ -1864,62 +1973,632 @@ def route_check_phase(torch, dev, arch):
     """One full-width bf16 prefill (8 rows x 64, right-padded lengths,
     8 rows with different adapters from an 8-slot pool, B nonzero) and one
     decode step (from the kernel route's cache, one idle row) of
-    ``arch`` on each route of ``ROUTES``: logits within ``ROUTE_TOL`` of
-    max|logit| of the kernel route's, top-1 equal on every live row whose
-    top-2 margin exceeds the tolerance; the agreement over all live rows
-    is reported beside it."""
+    ``arch`` on each route of ``ROUTES`` (``route_check``)."""
     from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    params = _variant_params(torch, dev, cfg, 11)
+    res = route_check(torch, dev, cfg, params, variant_spec(cfg), ROUTES,
+                      lengths=(64, 60, 50, 40, 33, 20, 9, 64), s=64,
+                      decode_steps=1, idle_row=True,
+                      where=f"{arch} full-width bf16")
+    del params
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dense attention variants at full width: gemma2-9b,
+# starcoder2-7b and chameleon-34b (8 of its 48 layers); the int8 KV cache
+# ---------------------------------------------------------------------------
+
+LONG_CTX = 4608          # the long serves' max_ctx: 4400 + 48 tokens fit
+LONG_S = 4352            # route check prompts, past the 4096 window
+LONG_LENGTHS = (4352, 4200)
+LONG_DECODE_STEPS = 4
+# chameleon-34b's 68 GB of bf16 weights leave no room for its pool, caches
+# and the plain route beside them on one 80 GB card: its full width at
+# this depth
+CHAMELEON_LAYERS = 8
+
+
+def variant_spec(cfg, **kw):
+    """The kernel and launch spec of ``cfg`` (as ``LLAMA_SPEC``): its
+    LoRA modules' widths (no ``gate`` on a plain MLP), heads and layers,
+    and the page-gather launches of a paged decode step (one per arena
+    leaf of each attention slot: k and v, and their scales in an int8
+    cache)."""
+    d, qs, kvs, f = cfg.d_model, cfg.q_size, cfg.kv_size, cfg.d_ff
+    dims = {"q": (d, qs), "k": (d, kvs), "v": (d, kvs), "o": (qs, d),
+            "up": (d, f), "gate": (d, f), "down": (f, d)}
+    modules = {m: dims[m] for m in cfg.lora.target_modules
+               if cfg.glu or m != "gate"}
+    leaves = 4 if cfg.attn.kv_cache_quant else 2
+    spec = dict(model=cfg.name, r_pool=cfg.lora.max_resident,
+                rank=cfg.lora.rank,
+                shrink_d=tuple(sorted({a for a, _ in modules.values()})),
+                expand_d=tuple(sorted({b for _, b in modules.values()})),
+                modules=modules, cases=[("decode", N_SLOTS)],
+                heads=(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim),
+                layers=cfg.n_layers, dtypes=("bfloat16",),
+                groups=cfg.n_layers // len(cfg.attn.layer_pattern),
+                gathers=leaves * len(cfg.attn.layer_pattern))
+    spec.update(kw)
+    return spec
+
+
+def _variant_params(torch, dev, cfg, seed):
+    from repro_torch.models import build_model
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = build_model(cfg, dev).init(gen)
+    prepare_weights(torch, cfg, params, gen)
+    n = sum(p.numel() for p in _leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.resolved_head_dim}"
+        f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n / 1e9:.2f}B "
+        f"params; adapters of {cfg.lora_adapter_bytes() / 1e6:.1f} MB")
+    return params
+
+
+def _cast_tree(torch, tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(torch, v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def _clone_cache(cache):
+    return {k: {n: v.clone() for n, v in c.items()}
+            for k, c in cache.items()}
+
+
+def route_check(torch, dev, cfg, params, spec, routes, *, lengths, s,
+                decode_steps, where, idle_row=False):
+    """One bf16 prefill of ``len(lengths)`` right-padded rows of ``s``
+    tokens (per-row adapters from an 8-slot pool, B nonzero) and
+    ``decode_steps`` decode steps on each route of ``routes`` (name ->
+    (attention kernels, LoRA backend)); every route's step starts from the
+    kernel route's cache and tokens (``idle_row``: the last row decodes
+    idle, token 0 at position 0, as the engine runs an empty slot).
+    Logits of the kernel route within ``ROUTE_TOL`` of max|logit| of each
+    other route's, top-1 equal on every live row where the margin clears
+    it (the agreement over all live rows reported beside); each route
+    launches each attention kernel once per layer if it runs them, each
+    SGMV kernel once per LoRA module and layer per step if it runs them,
+    and nothing else."""
     from repro_torch.core.lora import LoRAMode
     from repro_torch.models import build_model
 
-    cfg = get_config(arch)
     gen = torch.Generator(device=dev).manual_seed(11)
-    models = {on: build_model(cfg, dev, attn_kernel=on)
-              for on in (True, False)}
-    params = models[True].init(gen)
-    prepare_weights(torch, cfg, params, gen)
+    models = {}
+    for on in {on for on, _ in routes.values()}:
+        models[on] = build_model(cfg, dev, attn_kernel=on)
+        models[on].load_params(params)
     pool = models[True].init_lora(gen, n_slots=N_SLOTS)
     for mods in pool["layers"].values():
         for pair in mods.values():
             pair["B"].normal_(0.0, B_STD, generator=gen)
-    b, s = N_SLOTS, 64
+    b = len(lengths)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                            device=dev, dtype=torch.int32)
-    lengths = torch.tensor([64, 60, 50, 40, 33, 20, 9, 64],
-                           dtype=torch.int32, device=dev)
-    sids = torch.arange(b, dtype=torch.int32, device=dev)
-    out, cache0 = {}, None
-    with torch.no_grad():
-        for route, (on, backend) in ROUTES.items():
-            m = models[on]
-            mode = LoRAMode("batched", sids, cfg.lora.scale, backend)
-            logits, cache = m.prefill(params, {"tokens": tokens},
-                                      m.init_cache(b, MAX_CTX), pool, mode,
-                                      lengths=lengths)
-            out[("prefill", route)] = logits.float()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    sids = torch.arange(b, dtype=torch.int32, device=dev) % N_SLOTS
+    layers, n_lora = spec["layers"], spec["layers"] * len(spec["modules"])
+    out, launches, cache0 = {}, {}, None
+
+    def run(route, fn):
+        on, backend = routes[route]
+        mode = LoRAMode("batched", sids, cfg.lora.scale, backend)
+        before = _counts()
+        with torch.no_grad():
+            res = fn(models[on], mode)
+        torch.cuda.synchronize()
+        launches.setdefault(route, []).append(
+            {k: n - before[k] for k, n in _counts().items()})
+        return res
+
+    t0 = time.perf_counter()
+    for route in routes:
+        logits, cache = run(route, lambda m, mode: m.prefill(
+            params, {"tokens": tokens}, m.init_cache(b, s + decode_steps),
+            pool, mode, lengths=lens))
+        out[("prefill", route)] = logits.float()
+        if route == "kernels":
+            cache0 = cache
+        del cache
+    nxt, pos = out[("prefill", "kernels")].argmax(-1).int(), lens.clone()
+    for i in range(decode_steps):
+        if idle_row:
+            nxt[-1], pos[-1] = 0, 0
+        nxt_cache = None
+        for route in routes:
+            logits, cache = run(route, lambda m, mode: m.decode_step(
+                params, nxt, _clone_cache(cache0), pos, pool, mode))
+            out[(f"decode{i}", route)] = logits.float()
             if route == "kernels":
-                cache0 = cache
-        nxt = out[("prefill", "kernels")].argmax(-1).int()
-        pos = lengths.clone()
-        nxt[-1], pos[-1] = 0, 0
-        for route, (on, backend) in ROUTES.items():
-            cache = {k: {n: v.clone() for n, v in c.items()}
-                     for k, c in cache0.items()}
-            mode = LoRAMode("batched", sids, cfg.lora.scale, backend)
-            logits, _ = models[on].decode_step(params, nxt, cache, pos,
-                                               pool, mode)
-            out[("decode", route)] = logits.float()
-    torch.cuda.synchronize()
-    live = {"prefill": torch.ones(b, dtype=torch.bool, device=dev),
-            "decode": torch.arange(b, device=dev) < b - 1}
-    res = {}
-    for step in ("prefill", "decode"):
-        for route, tol in ROUTE_TOL.items():
+                nxt_cache = cache
+            del cache
+        cache0 = nxt_cache
+        nxt, pos = out[(f"decode{i}", "kernels")].argmax(-1).int(), pos + 1
+    seconds = time.perf_counter() - t0
+    # the kernel route's launches per step call, none elsewhere
+    for route, calls in launches.items():
+        for i, got in enumerate(calls):
+            phase = "prefill" if i == 0 else "decode"
+            want = dict.fromkeys(got, 0)
+            if routes[route][0]:            # the attention kernels
+                want["flash_prefill" if i == 0 else "flash_decode"] = layers
+            if routes[route][1] == "sgmv":
+                want["sgmv_shrink"] = want["sgmv_expand"] = n_lora
+            check(got == want, f"{where}: {route} {phase} launched {got}, "
+                  f"want {want}")
+    res = dict(seconds=seconds, launches=launches["kernels"])
+    for step in ["prefill"] + [f"decode{i}" for i in range(decode_steps)]:
+        live = torch.ones(b, dtype=torch.bool, device=dev)
+        if idle_row and step != "prefill":
+            live[-1] = False
+        for route in routes:
+            if route == "kernels":
+                continue
             res[f"{step}_vs_{route}"] = compare_logits(
-                torch, f"{arch} full-width bf16 {step}, kernels vs {route}",
-                out[(step, "kernels")], out[(step, route)], live[step], tol)
-    del models, params, pool, cache0, out
+                torch, f"{where} {step}, kernels vs {route}",
+                out[(step, "kernels")], out[(step, route)], live,
+                ROUTE_TOL[route])
+    del models, pool, cache0, out
+    _release(torch)
     return res
+
+
+def long_trace(cfg, n_adapters, seed, n=8, long_rows=(0, 3, 5)):
+    """``n`` requests of a burst (prompts 40-200 tokens, outputs 16-32:
+    gemma2's unmerged decode step is host-bound at ~0.3 s, and 48-token
+    outputs made each of its four serves ~30 s), three of them
+    (``long_rows``) extended to 4100-4400 tokens, past the 4096
+    window."""
+    import numpy as np
+
+    from repro_torch.serving.workload import WorkloadConfig, generate_trace
+
+    trace = generate_trace(WorkloadConfig(
+        n_adapters=n_adapters, request_rate=200.0, duration=0.1,
+        input_range=(40, 200), output_range=(16, 32),
+        vocab_size=cfg.vocab_size, seed=seed))[:n]
+    check(len(trace) == n, f"long trace of {len(trace)} requests")
+    rng = np.random.default_rng(seed)
+    for i in long_rows:
+        r = trace[i]
+        old = np.asarray(r.prompt_tokens)
+        length = int(rng.integers(4100, 4401))
+        r.prompt_tokens = np.concatenate([old, rng.integers(
+            0, cfg.vocab_size, length - len(old))]).astype(old.dtype)
+        r.prompt_len = length
+    return trace
+
+
+# the variant serves' adapter loads at 10 GB/s: at the default 1 GB/s a
+# gemma2 swap-in (108 MB) spans ~20 fake steps, and the requests waiting
+# on it more than double each serve's decode steps
+VARIANT_DISK_BANDWIDTH = 10e9
+
+
+def _variant_engine(torch, dev, cfg, params, source, policy, kv, **kw):
+    from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
+    ecfg = EngineConfig(n_slots=N_SLOTS, top_k=1, policy=policy,
+                        lora_backend="auto", kv_backend=kv,
+                        kv_block_size=KV_BLOCK, seed=0,
+                        disk_bandwidth=VARIANT_DISK_BANDWIDTH, **kw)
+    eng = EdgeLoRAEngine(cfg, ecfg, params=params, device=dev,
+                         adapter_source=source, timer=FakeTime())
+    check(eng.lora_backend == "sgmv" and eng.attn_kernel
+          and (eng.kv_gather_kernel or kv == "dense"),
+          f"{cfg.name} {policy}/{kv}: kernels not resolved on CUDA")
+    return eng
+
+
+def dense_paged_pair(torch, dev, cfg, params, source, spec, make_trace,
+                     where, policy="edgelora", paged_kw=None,
+                     same_summary=True, same_streams=True, **kw):
+    """The same trace served dense and paged (``paged_kw`` added to the
+    paged engine), each under its own fake timer: every step call's
+    launches held; equal streams (unless not ``same_streams``: then
+    counted) and, with ``same_summary``, summaries (but for the KV
+    backend's own ``kv_stats`` and ``prefix_stats``; a paged serve with
+    the prefix cache or chunks runs other step calls, so its clock
+    differs)."""
+    runs = {}
+    for kv in ("dense", "paged"):
+        extra = dict(kw, **(paged_kw or {})) if kv == "paged" else kw
+        eng = _variant_engine(torch, dev, cfg, params, source, policy, kv,
+                              **extra)
+        runs[kv] = qwen2_serve(torch, dev, f"{where} {kv}", eng,
+                               make_trace(), spec)
+        del eng
+        _release(torch)
+    same = sum(runs["dense"]["streams"][k] == v
+               for k, v in runs["paged"]["streams"].items())
+    log(f"  {where}: dense vs paged streams {same}/"
+        f"{len(runs['dense']['streams'])} equal")
+    runs["paged"]["streams_equal_to_dense"] = same
+    check(not same_streams
+          or runs["dense"]["streams"] == runs["paged"]["streams"],
+          f"{where}: dense and paged streams differ")
+    check(not same_summary
+          or _fields(runs["dense"]["summary"], "kv_stats", "prefix_stats")
+          == _fields(runs["paged"]["summary"], "kv_stats", "prefix_stats"),
+          f"{where}: dense and paged summaries differ")
+    return runs
+
+
+def _summaries(runs):
+    import dataclasses
+    for r in runs.values():
+        r["summary"] = dataclasses.asdict(r["summary"])
+    return runs
+
+
+def variants_phase(torch, dev):
+    """Phase 11 (see the module docstring). Returns its record: route
+    checks, serves (their launches included) and kernel rows at the new
+    shapes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
+
+    out = {}
+    # ---- gemma2-9b ------------------------------------------------------
+    t0 = time.perf_counter()
+    cfg = get_config("gemma2-9b")
+    cfg = dataclasses.replace(cfg, lora=dataclasses.replace(
+        cfg.lora, n_adapters=2 * cfg.lora.max_resident))
+    check(cfg.n_layers == 42 and cfg.d_model == 3584 and cfg.n_heads == 16
+          and cfg.n_kv_heads == 8 and cfg.resolved_head_dim == 256
+          and cfg.d_ff == 14336 and cfg.vocab_size == 256000
+          and cfg.tie_embeddings and cfg.attn.sliding_window == 4096
+          and cfg.attn.layer_pattern == ("local", "global")
+          and cfg.attn.attn_logit_softcap == 50.0
+          and cfg.final_logit_softcap == 30.0 and cfg.post_norm
+          and cfg.scale_embeddings and cfg.lora.rank == 16
+          and len(cfg.lora.target_modules) == 7,
+          "not the full gemma2-9b config")
+    spec = variant_spec(cfg)
+    qcfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+        cfg.attn, kv_cache_quant=True))
+    qspec = variant_spec(qcfg)
+    rec = dict(kernel_rows=kernel_phase(torch, dev, spec),
+               gather_rows=gather_phase(torch, dev, dict(
+                   spec, max_ctx=LONG_CTX, gather_cases=(
+                       ("k bf16", "bfloat16", 8 * 256),
+                       ("k int8", "int8", 8 * 256),
+                       ("k_scale bf16", "bfloat16", 8)))),
+               attention_rows=variant_attention_rows(torch, dev, cfg))
+    params = _variant_params(torch, dev, cfg, 21)
+    source = make_adapter_source(torch, dev, cfg)
+    routes = {"kernels": ROUTES["kernels"], "plain": ROUTES["plain"]}
+    rec["route_check"] = route_check(
+        torch, dev, cfg, params, spec, routes, lengths=LONG_LENGTHS,
+        s=LONG_S, decode_steps=LONG_DECODE_STEPS, where="gemma2-9b bf16")
+    # int8: one decode step on the kernel route against the plain
+    # (dequantized) attention
+    qroutes = {"kernels": ROUTES["kernels"],
+               "plain_attention": ROUTES["plain_attention"]}
+    rec["route_check_int8"] = route_check(
+        torch, dev, qcfg, params, qspec, qroutes, lengths=LONG_LENGTHS,
+        s=LONG_S, decode_steps=1, where="gemma2-9b int8")
+    long_kw = dict(max_ctx=LONG_CTX, prompt_buckets=(64, 256))
+    for name, c, sp in (("bf16", cfg, spec), ("int8", qcfg, qspec)):
+        runs = dense_paged_pair(
+            torch, dev, c, params, source, sp,
+            lambda c=c: long_trace(c, c.lora.n_adapters, 12),
+            f"gemma2-9b edgelora {name}", **long_kw)
+        for r in runs.values():
+            check(r["step_calls"].get("decode", 0) > 0
+                  and max(len(v) for v in r["streams"].values()) >= 16,
+                  f"gemma2-9b {name}: no long decode")
+        rec[f"serve_{name}"] = _summaries(runs)
+    refusals = {}
+    for feature, kw in (("prefix_cache", dict(kv_backend="paged",
+                                              prefix_cache=True)),
+                        ("prefill_chunk", dict(prefill_chunk=32))):
+        try:
+            EdgeLoRAEngine(cfg, EngineConfig(n_slots=N_SLOTS, **long_kw,
+                                             **kw),
+                           params=params, device=dev,
+                           adapter_source=source)
+        except ValueError as e:
+            refusals[feature] = str(e)
+        _release(torch)
+        check(feature in refusals
+              and "window-local ring" in refusals[feature],
+              f"gemma2-9b: {feature} was not refused: {refusals}")
+    log(f"  gemma2-9b refusals: {refusals}")
+    rec["refusals"] = refusals
+    del params, source
+    _release(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"gemma2-9b {rec['seconds']:.1f}s")
+    out["gemma2-9b"] = rec
+
+    # ---- starcoder2-7b --------------------------------------------------
+    t0 = time.perf_counter()
+    cfg = get_config("starcoder2-7b")
+    cfg = dataclasses.replace(cfg, lora=dataclasses.replace(
+        cfg.lora, n_adapters=2 * cfg.lora.max_resident))
+    check(cfg.n_layers == 32 and cfg.d_model == 4608 and cfg.n_heads == 36
+          and cfg.n_kv_heads == 4 and cfg.resolved_head_dim == 128
+          and cfg.d_ff == 18432 and cfg.vocab_size == 49152
+          and not cfg.glu and cfg.act == "gelu" and cfg.attn.qkv_bias
+          and not cfg.tie_embeddings
+          and cfg.attn.layer_pattern == ("local",)
+          and cfg.attn.sliding_window == 4096,
+          "not the full starcoder2-7b config")
+    spec = variant_spec(cfg)
+    check("gate" not in spec["modules"], "starcoder2-7b: a gate module")
+    rec = dict(kernel_rows=kernel_phase(torch, dev, spec),
+               attention_rows=variant_attention_rows(torch, dev, cfg))
+    params = _variant_params(torch, dev, cfg, 22)
+    source = make_adapter_source(torch, dev, cfg)
+    rec["route_check"] = route_check(
+        torch, dev, cfg, params, spec, routes, lengths=LONG_LENGTHS,
+        s=LONG_S, decode_steps=LONG_DECODE_STEPS, where="starcoder2-7b")
+    short_kw = dict(max_ctx=MAX_CTX, prompt_buckets=(32, 64))
+    burst = dict(n_adapters=cfg.lora.n_adapters, request_rate=200.0,
+                 duration=0.05, input_range=(8, 64), output_range=(4, 16),
+                 vocab_size=cfg.vocab_size, seed=13)
+
+    def short_trace():
+        from repro_torch.serving.workload import (WorkloadConfig,
+                                                  generate_trace)
+        return generate_trace(WorkloadConfig(**burst))
+
+    rec["serve_edgelora"] = _summaries(dense_paged_pair(
+        torch, dev, cfg, params, source, spec, short_trace,
+        "starcoder2-7b edgelora", **short_kw))
+    eng = _variant_engine(torch, dev, cfg, params, source, "llamacpp",
+                          "dense", **short_kw)
+    check(set(eng.lora_pool["layers"]["slot0"]) == set(spec["modules"]),
+          "starcoder2-7b: the LoRA pool's modules are not q,k,v,o,up,down")
+    run = qwen2_serve(torch, dev, "starcoder2-7b llamacpp dense", eng,
+                      short_trace(), spec)
+    check(run["unmerged_calls"] == 0 and run["merged_calls"] > 0
+          and run["launches"]["sgmv_shrink"] == 0,
+          "starcoder2-7b llamacpp: unmerged steps ran")
+    run["summary"] = dataclasses.asdict(run["summary"])
+    rec["serve_llamacpp"] = run
+    del eng, params, source
+    _release(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"starcoder2-7b {rec['seconds']:.1f}s")
+    out["starcoder2-7b"] = rec
+
+    # ---- chameleon-34b, 8 of 48 layers ----------------------------------
+    t0 = time.perf_counter()
+    full = get_config("chameleon-34b")
+    check(full.n_layers == 48 and full.d_model == 8192
+          and full.n_heads == 64 and full.n_kv_heads == 8
+          and full.d_ff == 22016 and full.vocab_size == 65536
+          and full.attn.qk_norm and full.family == "vlm",
+          "not the full chameleon-34b config")
+    cfg = dataclasses.replace(full, n_layers=CHAMELEON_LAYERS,
+                              lora=dataclasses.replace(
+                                  full.lora,
+                                  n_adapters=2 * full.lora.max_resident))
+    log(f"chameleon-34b: full width, {CHAMELEON_LAYERS} of its "
+        f"{full.n_layers} layers ({full.param_count() / 1e9:.1f}B params "
+        f"at full depth, {2 * full.param_count() / 1e9:.0f} GB of bf16 "
+        "weights: more than the card holds beside a pool, caches and the "
+        "plain route)")
+    spec = variant_spec(cfg)
+    rec = dict(layers=CHAMELEON_LAYERS, full_layers=full.n_layers,
+               kernel_rows=kernel_phase(torch, dev, spec),
+               attention_rows=variant_attention_rows(torch, dev, cfg))
+    params = _variant_params(torch, dev, cfg, 23)
+    check(all(float(slot["attn"][n]["scale"].abs().max()) > 0
+              for slot in params["layers"].values()
+              for n in ("q_norm", "k_norm")), "QK-norm scales are zero")
+    source = make_adapter_source(torch, dev, cfg)
+    rec["route_check"] = route_check(
+        torch, dev, cfg, params, spec, ROUTES,
+        lengths=(64, 60, 50, 40, 33, 20, 9, 64), s=64, decode_steps=1,
+        idle_row=True, where="chameleon-34b")
+    sys_len, chunk = 32, 32
+    prefix_wl = dict(n_adapters=4, request_rate=200.0, duration=0.08,
+                     input_range=(8, 64), output_range=(4, 16),
+                     system_prompt_len=sys_len,
+                     vocab_size=cfg.vocab_size, seed=14)
+
+    def prefix_trace():
+        from repro_torch.serving.workload import (WorkloadConfig,
+                                                  generate_trace)
+        return generate_trace(WorkloadConfig(**prefix_wl))
+
+    # bf16: the prefix and chunk steps run other shapes than the dense
+    # serve's whole-prompt prefills (other GEMM and SGMV splits), and
+    # chameleon's random-weight logits sit on bf16 near-ties (top-2
+    # margins of 0 in the route check): streams counted, not held. f32
+    # (the same weights, widened): streams held equal.
+    paged_kw = dict(prefix_cache=True, prefill_chunk=chunk)
+    for dname in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dname)
+        p = (params if dname == "bfloat16"
+             else _cast_tree(torch, params, torch.float32))
+        runs = dense_paged_pair(
+            torch, dev, c, p, source, spec, prefix_trace,
+            f"chameleon-34b edgelora {dname}", paged_kw=paged_kw,
+            same_summary=False, same_streams=dname == "float32",
+            **short_kw)
+        ps = runs["paged"]["summary"].prefix_stats
+        check(ps["hit_requests"] > 0 and ps["saved_prefill_tokens"] > 0,
+              f"chameleon-34b {dname}: no prefix hits: {ps}")
+        check(runs["paged"]["step_names"].get("_prefill_suffix", 0) > 0,
+              f"chameleon-34b {dname}: no suffix (prefix or chunk) prefill "
+              "step")
+        rec[f"serve_prefix_chunk_{dname}"] = _summaries(runs)
+        del p
+        _release(torch)
+    del params, source
+    _release(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"chameleon-34b {rec['seconds']:.1f}s")
+    out["chameleon-34b"] = rec
+    return out
+
+
+def variant_attention_rows(torch, dev, cfg):
+    """``flash_decode`` and ``flash_prefill`` at ``cfg``'s layer shapes,
+    bf16, against their plain versions, timed beside them, the library
+    call (``scaled_dot_product_attention`` with GQA and the mask) and the
+    bound: decode over a ring of ``cache_len_for(kind, LONG_CTX)`` entries
+    (8 rows at depths 4400 down to 1, one idle), with the window and
+    softcap of the model's local slot (gemma2: also the int8 ring with
+    bf16 scales as the cache stores them, through ``ops.decode_attention``,
+    the scales' cast timed apart); prefill of ``LONG_LENGTHS``-row prompts
+    of ``LONG_S`` tokens past the window (chameleon: 8 rows of 64)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import _quantize_kv
+    from repro_torch.models.transformer import cache_len_for
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = h // kh
+    kind = cfg.attn.layer_pattern[0]
+    window = cfg.attn.sliding_window if kind == "local" else None
+    softcap = cfg.attn.attn_logit_softcap
+    bf = torch.bfloat16
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    def err(got, want):
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()), "non-finite output")
+        d = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        check(d <= ATTN_TOL["bfloat16"] * scale,
+              f"{cfg.name}: max abs err {d:.3e} > "
+              f"{ATTN_TOL['bfloat16']:.1e} x {scale:.3e}")
+        return d
+
+    # ---- flash_decode ---------------------------------------------------
+    b, c = N_SLOTS, cache_len_for(kind, cfg, LONG_CTX)
+    depth = torch.tensor([4400, 4300, 4200, 4097, 1000, 200, 1, 0],
+                         dtype=torch.int32, device=dev)
+    idx = torch.arange(c, dtype=torch.int32, device=dev)
+    newest = (depth[:, None] - 1 - idx) // c * c + idx
+    kv_pos = torch.where(newest >= 0, newest, -1).to(torch.int32)
+    q_pos = (depth - 1).clamp_min(0)
+    visible = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    if window is not None:
+        visible &= (q_pos[:, None] - kv_pos) < window
+    no_key = ~visible.any(1)
+    n_vis = int(visible.sum())
+    mask = visible[:, None, None, :]
+    kw = dict(window=window, softcap=softcap)
+    q = randn(b, h, hd)
+    kinds = [("bfloat16", None)]
+    if cfg.name == "gemma2-9b":
+        kinds.append(("int8", None))
+    for kvname, _ in kinds:
+        if kvname == "int8":
+            k, ks = _quantize_kv(torch.randn(b, c, kh, hd, generator=gen,
+                                             device=dev))
+            v, vs = _quantize_kv(torch.randn(b, c, kh, hd, generator=gen,
+                                             device=dev))
+            scales = dict(k_scale=ks.to(bf), v_scale=vs.to(bf))
+            kv_es, extra = 1, 2        # a bf16 scale per (entry, kv head)
+        else:
+            k, v = randn(b, c, kh, hd), randn(b, c, kh, hd)
+            scales, kv_es, extra = {}, 2, 0
+
+        def call():
+            return ops.decode_attention(q, k, v, kv_pos, q_pos, **scales,
+                                        **kw)
+
+        def plain():
+            return ops.decode_attention(q, k, v, kv_pos, q_pos, **scales,
+                                        use_kernel=False, **kw)
+
+        e = err(call(), plain())
+        per_entry = kh * (hd * kv_es + extra)
+        nbytes = (2 * q.numel() * 2 + kv_pos.numel() * 4 + b * 4
+                  + n_vis * 2 * per_entry + int(no_key.sum()) * c * per_entry)
+        flops = 4.0 * hd * g * n_vis + 2.0 * hd * h * c * int(no_key.sum())
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        if scales:
+            kd = (k.float() * scales["k_scale"].float()[..., None]).to(bf)
+            vd = (v.float() * scales["v_scale"].float()[..., None]).to(bf)
+        else:
+            kd, vd = k, v
+        kl, vl = (x.transpose(1, 2).contiguous() for x in (kd, vd))
+        qs = q[:, :, None, :]
+        row = dict(
+            kernel="flash_decode", model=cfg.name, dtype="bfloat16",
+            kv_dtype=kvname,
+            shape=f"q [{b},{h},{hd}] k,v [{b},{c},{kh},{hd}] {kvname}, "
+                  f"window {window}, softcap {softcap}, depths "
+                  f"{depth.tolist()}", visible_entries=n_vis,
+            max_abs_err=e, ms=cuda_ms(torch, call, flush),
+            host_us=enqueue_us(torch, call),
+            plain_ms=cuda_ms(torch, plain, flush),
+            bound_ms=bnd, bound_by=by)
+        # SDPA has no softcap: with one it is a yardstick of a different
+        # function, kept apart, and the row has no library call
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, kl, vl, attn_mask=mask, enable_gqa=True), flush)
+        row["library_ms"] = None if softcap else lib
+        if softcap:
+            row["sdpa_without_softcap_ms"] = lib
+        if scales:
+            # what the wrapper adds for the cache's bf16 scales: two casts
+            row["scale_cast_ms"] = cuda_ms(torch, lambda: (
+                scales["k_scale"].float(), scales["v_scale"].float()), flush)
+        rows.append(row)
+        log("flash_decode " + json.dumps(row))
+        del k, v, kl, vl, kd, vd
+
+    # ---- flash_prefill --------------------------------------------------
+    # a model with local layers at the long prompts (its local, windowed
+    # layer: gemma2's global ones are plain causal), else a prefill group
+    pw = window
+    b, s = ((len(LONG_LENGTHS), LONG_S) if pw is not None
+            else (N_SLOTS, 64))
+    q, k, v = randn(b, s, h, hd), randn(b, s, kh, hd), randn(b, s, kh, hd)
+    kw = dict(window=pw, softcap=softcap)
+    pos = torch.arange(s, device=dev)
+    vis = (pos[None, :] <= pos[:, None])
+    if pw is not None:
+        vis &= (pos[:, None] - pos[None, :]) < pw
+    pairs = int(vis.sum())
+    e = err(fp.flash_prefill(q, k, v, **kw), fp.flash_prefill_plain(
+        q, k, v, **kw))
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bnd, by = bound_ms(nbytes, 4.0 * b * h * hd * pairs, "bfloat16")
+    ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    row = dict(
+        kernel="flash_prefill", model=cfg.name, dtype="bfloat16",
+        case="prefill",
+        shape=f"q [{b},{s},{h},{hd}] k,v [{b},{s},{kh},{hd}] bf16 causal, "
+              f"window {pw}, softcap {softcap}",
+        visible_pairs=pairs, max_abs_err=e,
+        ms=cuda_ms(torch, lambda: fp.flash_prefill(q, k, v, **kw), flush),
+        host_us=enqueue_us(torch, lambda: fp.flash_prefill(q, k, v, **kw)),
+        plain_ms=cuda_ms(torch, lambda: fp.flash_prefill_plain(
+            q, k, v, **kw), flush, iters=5),
+        bound_ms=bnd, bound_by=by)
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, attn_mask=vis, enable_gqa=True), flush)
+    row["library_ms"] = None if softcap else lib
+    if softcap:
+        row["sdpa_without_softcap_ms"] = lib
+    rows.append(row)
+    log("flash_prefill " + json.dumps(row))
+    del q, k, v, ql, kl, vl
+    _release(torch)
+    return rows
 
 
 def profile_decode(torch, decode, engine, captured, label: str,
@@ -2088,6 +2767,12 @@ def main(argv=None) -> int:
         _release(torch)
     log(f"full-width route checks {time.perf_counter() - t0:.1f}s")
 
+    # ---- 11. gemma2-9b, starcoder2-7b, chameleon-34b; int8 KV -----------
+    t0 = time.perf_counter()
+    variants = variants_phase(torch, dev)
+    _release(torch)
+    log(f"variants phase {time.perf_counter() - t0:.1f}s")
+
     # launches over every serve, the main path's and each later one's
     serves = {"dense": serve["launches"],
               "paged_compare_dense": paged["dense"]["launches"],
@@ -2102,6 +2787,15 @@ def main(argv=None) -> int:
         if isinstance(runs, dict) and "dense" in runs:
             for kv, run in runs.items():
                 serves[f"qwen2_{key}_{kv}"] = run["launches"]
+    for arch, rec in variants.items():
+        for key, runs in rec.items():
+            if not key.startswith("serve_"):
+                continue
+            if "launches" in runs:
+                serves[f"{arch}_{key}"] = runs["launches"]
+            else:
+                for kv, run in runs.items():
+                    serves[f"{arch}_{key}_{kv}"] = run["launches"]
 
     def pick(kernel, table, d):
         """A model's decode shape: 8 bf16 rows, ``d`` wide."""
@@ -2110,10 +2804,40 @@ def main(argv=None) -> int:
                     and r["d"] == d)
 
     def timing(r, shape):
+        extra = {k: r[k] for k in ("scale_cast_ms", "sdpa_without_softcap_ms")
+                 if k in r}
         return dict(ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"], host_us=r.get("host_us"),
-                    shape=shape)
+                    shape=shape, **extra)
+
+    def variant_rows(name):
+        """Every row of kernel ``name`` at phase 11's shapes."""
+        out, table = [], {"sgmv_shrink": "kernel_rows",
+                          "sgmv_expand": "kernel_rows",
+                          "paged_gather_pages": "gather_rows",
+                          "flash_decode": "attention_rows",
+                          "flash_prefill": "attention_rows"}[name]
+        for rec in variants.values():
+            out += [r for r in rec.get(table, []) if r["kernel"] == name]
+        return out
+
+    def variant_timings(name):
+        by_model = {}
+        for r in variant_rows(name):
+            if name.startswith("sgmv"):
+                shape = (f"{r['model']} {r['phase']} T={r['T']} "
+                         f"(T_pad={r['T_pad']}) d={r['d']} r={r['r']} "
+                         f"{r['dtype']} x, f32 pool")
+            elif name == "paged_gather_pages":
+                shape = (f"{r['model']} {r['leaf']} ng={r['ng']} "
+                         f"n_pages={r['n_pages']} bs={r['bs']} F={r['F']} "
+                         f"B={r['B']} MB={r['MB']}")
+            else:
+                shape = r["shape"]
+            key = r["model"].replace("-", "_").replace(".", "_")
+            by_model.setdefault(key, []).append(timing(r, shape))
+        return by_model
 
     def sgmv_shape(r, spec):
         return (f"{spec['model']} decode T={r['T']} (T_pad={r['T_pad']}) "
@@ -2134,10 +2858,11 @@ def main(argv=None) -> int:
             launches_prefill=serve["path_launches"]["prefill"][name],
             launches_decode=serve["path_launches"]["decode"][name],
             max_abs_err=max(x["max_abs_err"] for x in rows + q_rows
-                            if x["kernel"] == name),
+                            + variant_rows(name) if x["kernel"] == name),
             **timing(r, sgmv_shape(r, LLAMA_SPEC)),
             bound_padded_ms=r["bound_padded_ms"],
-            qwen2_0_5b=timing(qr, sgmv_shape(qr, QWEN_SPEC))))
+            qwen2_0_5b=timing(qr, sgmv_shape(qr, QWEN_SPEC)),
+            **variant_timings(name)))
     g = next(r for r in gather_rows if r["dtype"] == "bfloat16")
     qg = next(r for r in q_gather if r["dtype"] == "bfloat16")
 
@@ -2151,8 +2876,10 @@ def main(argv=None) -> int:
         source="src/repro_torch/kernels/csrc/paged_gather.cu",
         replaces="src/repro/kernels/paged_gather.py:31",
         launches=sum(by_serve.values()), launches_by_serve=by_serve,
-        max_abs_err=max(r["max_abs_err"] for r in gather_rows + q_gather),
-        **timing(g, gather_shape(g)), qwen2_0_5b=timing(qg, gather_shape(qg))))
+        max_abs_err=max(r["max_abs_err"] for r in gather_rows + q_gather
+                        + variant_rows("paged_gather_pages")),
+        **timing(g, gather_shape(g)), qwen2_0_5b=timing(qg, gather_shape(qg)),
+        **variant_timings("paged_gather_pages")))
     # the attention kernels: times at each model's bf16 shape (decode
     # step; full prefill group)
     for name, src, replaces, pick_row in (
@@ -2173,8 +2900,10 @@ def main(argv=None) -> int:
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
             launches=sum(by_serve.values()), launches_by_serve=by_serve,
-            max_abs_err=max(x["max_abs_err"] for x in mine),
-            **timing(r, r["shape"]), qwen2_0_5b=timing(qr, qr["shape"])))
+            max_abs_err=max(x["max_abs_err"] for x in mine
+                            + variant_rows(name)),
+            **timing(r, r["shape"]), qwen2_0_5b=timing(qr, qr["shape"]),
+            **variant_timings(name)))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -2186,6 +2915,7 @@ def main(argv=None) -> int:
              qwen2_kernel_rows=q_rows, qwen2_gather_rows=q_gather,
              qwen2_attention_rows=q_attention, qwen2=qwen2,
              route_checks=routes, learned_router=learned,
+             variants=variants,
              seconds=time.perf_counter() - t_start), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

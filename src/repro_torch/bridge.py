@@ -50,7 +50,8 @@ def lora_pool_from_numpy(tree: Dict, device: Any = "cpu") -> Dict:
 
 
 def cache_from_numpy(tree: Dict, device: Any = "cpu") -> Dict:
-    """A KV cache tree (k, v and the int32 pos leaves) as tensors."""
+    """A KV cache tree as tensors: k, v (or int8 k, v with bf16 k_scale,
+    v_scale under ``kv_cache_quant``) and the int32 pos leaves."""
     return tree_from_numpy(tree, device)
 
 

@@ -142,18 +142,30 @@ def paged_gather(arena: torch.Tensor, tables: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_pos: torch.Tensor, q_pos: Any, *,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
                      window: Optional[int] = None, chunked: bool = False,
                      softcap: Optional[float] = None,
                      use_kernel: bool = True) -> torch.Tensor:
     """Flash-decode over the ring cache (see ``decode_attention.py``);
-    ``q_pos`` a scalar or [B]. ``use_kernel=False`` is the oracle
-    ``ref.decode_attention_ref``."""
+    ``q_pos`` a scalar or [B]. An int8 ring comes with its scales
+    [B, C, KH] as the cache stores them (bf16); they are cast to the
+    kernel's f32 here, as the Pallas wrapper casts them: one elementwise
+    op per scale leaf on the device, no host sync. ``use_kernel=False``
+    is the oracle ``ref.decode_attention_ref`` (int8 dequantized in f32
+    first)."""
+    if k_scale is not None:
+        k_scale, v_scale = k_scale.float(), v_scale.float()
     if not use_kernel:
+        if k_scale is not None:
+            k = k.float() * k_scale[..., None]
+            v = v.float() * v_scale[..., None]
         return ref.decode_attention_ref(q, k, v, kv_pos, q_pos,
                                         window=window, chunked=chunked,
                                         softcap=softcap)
-    return flash_decode(q, k, v, kv_pos, q_pos, window=window,
-                        chunked=chunked, softcap=softcap)
+    return flash_decode(q, k, v, kv_pos, q_pos, k_scale=k_scale,
+                        v_scale=v_scale, window=window, chunked=chunked,
+                        softcap=softcap)
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -13,7 +13,7 @@ synthetic workload (``repro.launch.serve`` with ``--device``).
 Runs on ``cuda`` unless ``--device cpu`` is given (no CUDA: it raises).
 ``--reduced`` (the default) is the tiny same-family variant; ``--full``
 the published widths of ``--arch`` (llama3-8b, qwen2-0.5b, llama3.2-3b,
-openelm-1.1b). The flags are the reference's: all four ``--policy``
+openelm-1.1b, gemma2-9b, starcoder2-7b, chameleon-34b). The flags are the reference's: all four ``--policy``
 values, ``--kv-backend paged``, ``--prefix-cache`` (which implies the
 paged backend) and ``--prefill-chunk`` serve as there, and the summary
 row carries their ``kv=`` and ``prefix=`` digests. ``--trace PATH``

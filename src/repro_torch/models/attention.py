@@ -1,13 +1,19 @@
-"""Attention, dense-global subset: GQA + RoPE (+ QKV bias) + blockwise
-prefill + cached decode (``repro.models.attention``).
+"""Attention: GQA + RoPE (+ QKV bias, QK-norm) + blockwise prefill +
+cached decode over global, sliding-window or chunked-local rings, bf16 or
+int8 (``repro.models.attention``).
 
 * Full-sequence attention is computed **blockwise with an online
   softmax** in plain PyTorch: the same query/KV block order and f32
   accumulation as the reference's scans, as two Python loops.
 * Decode reads a ring-buffer cache whose stored-position array tracks
-  validity. The port updates caches in place (the reference returns new
-  arrays); every write is a pure function of the step's inputs, so
-  repeating a step writes the same values.
+  validity: local layers keep ``window`` entries, global layers the whole
+  context, so one mask from positions serves every kind. The port
+  updates caches in place (the reference returns new arrays); every
+  write is a pure function of the step's inputs, so repeating a step
+  writes the same values.
+* ``kv_cache_quant`` stores K/V as int8 with one bf16 scale per (token,
+  kv head), quantized on write (``_quantize_kv``) and dequantized on
+  read (``_dequant``), as the reference does.
 
 Each attention function takes the route its caller chose
 (``use_kernel``, the model's ``attn_kernel``): ``blockwise_attention``
@@ -15,8 +21,9 @@ the plain two-loop code above or the ``flash_prefill`` kernel,
 ``decode_attention`` the plain einsum code or the ``flash_decode``
 kernel (through ``kernels/ops.py``; on CPU tensors each kernel wrapper
 runs its plain version). Both kernel routes keep the softmax
-probabilities in f32 where the plain code rounds them to V's dtype, so
-in bf16 the two routes differ by rounding.
+probabilities in f32 where the plain code rounds them to V's dtype, and
+``flash_decode`` dequantizes an int8 ring in f32 where the plain code
+rounds it to q's dtype, so in bf16 the two routes differ by rounding.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import LoRAMode
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (init_device, linear,
+from repro_torch.models.layers import (init_device, linear, rmsnorm,
                                       truncated_normal_init)
 
 NEG_INF = -1e30
@@ -79,13 +86,26 @@ def attention_init(generator: Optional[torch.Generator], cfg: ModelConfig, *,
         dev = init_device(generator)
         for name, size in (("bq", qs), ("bk", kvs), ("bv", kvs)):
             p[name] = torch.zeros((*stack, size), dtype=dtype, device=dev)
+    if cfg.attn.qk_norm:  # per-head RMSNorm of q and k, (1 + scale)
+        hd = cfg.resolved_head_dim
+        for name in ("q_norm", "k_norm"):
+            p[name] = {"scale": torch.zeros((*stack, hd), dtype=dtype,
+                                            device=init_device(generator))}
     return p
+
+
+def _maybe_qk_norm(p: Dict, q: torch.Tensor, k: torch.Tensor,
+                   eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    if "q_norm" in p:
+        q = rmsnorm(p["q_norm"], q, eps)
+        k = rmsnorm(p["k_norm"], k, eps)
+    return q, k
 
 
 def project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, lora: Optional[Dict] = None,
                 lora_mode: LoRAMode = LoRAMode()):
-    """x: [B, S, d] -> q [B,S,H,hd], k,v [B,S,KH,hd] (post-RoPE)."""
+    """x: [B, S, d] -> q [B,S,H,hd], k,v [B,S,KH,hd] (post-RoPE/qk-norm)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     lget = (lora or {}).get
@@ -100,6 +120,7 @@ def project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     q = proj("q", params["wq"], params.get("bq"), cfg.n_heads)
     k = proj("k", params["wk"], params.get("bk"), cfg.n_kv_heads)
     v = proj("v", params["wv"], params.get("bv"), cfg.n_kv_heads)
+    q, k = _maybe_qk_norm(params, q, k, cfg.norm_eps)
     if cfg.attn.rope:
         q = apply_rope(q, positions, cfg.attn.rope_theta)
         k = apply_rope(k, positions, cfg.attn.rope_theta)
@@ -113,16 +134,33 @@ def project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 def mask_fn(kind: str, cfg: ModelConfig):
     """(qpos, kpos) -> bool mask; qpos/kpos broadcast against each other.
-    This slice runs global (full causal) layers only."""
-    if kind != "global":
+    'global' is full causal, 'local' a sliding window of
+    ``sliding_window`` positions (with ``chunked_local`` the same-chunk
+    mask instead). The encoder's 'bidir' is not ported yet."""
+    if kind not in ("global", "local"):
         raise NotImplementedError(
-            f"attention kind {kind!r} is not ported yet (dense-global "
-            "slice only; see ROADMAP.md)")
+            f"attention kind {kind!r} is not ported yet (see ROADMAP.md)")
+    w = cfg.attn.sliding_window
+    chunked = cfg.attn.chunked_local
 
     def fn(qpos: torch.Tensor, kpos: torch.Tensor) -> torch.Tensor:
-        return (kpos >= 0) & (kpos <= qpos)
+        valid = (kpos >= 0) & (kpos <= qpos)
+        if kind == "local":
+            if chunked:  # torch's // on integer tensors floors, as JAX's
+                valid = valid & ((qpos // w) == (kpos // w))
+            else:
+                valid = valid & ((qpos - kpos) < w)
+        return valid
 
     return fn
+
+
+def kernel_window(kind: str, cfg: ModelConfig) -> Dict[str, Any]:
+    """The window arguments of the attention kernels for a layer kind."""
+    if kind == "local":
+        return {"window": cfg.attn.sliding_window,
+                "chunked": cfg.attn.chunked_local}
+    return {"window": None, "chunked": False}
 
 
 # ---------------------------------------------------------------------------
@@ -147,13 +185,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the ``flash_prefill`` kernel (which tiles on its own).
 
     q: [B, Sq, H, hd]; k, v: [B, Skv, KH, hd]; qpos: [Sq]; kpos: [Skv].
-    Returns [B, Sq, H, hd]. Causal masking from positions.
+    Returns [B, Sq, H, hd]. Causal/local masking from positions.
     """
     mfn = mask_fn(kind, cfg)  # raises for layer kinds not ported
     softcap = cfg.attn.attn_logit_softcap
-    if use_kernel:  # global layers: causal, no window
+    if use_kernel:
         return ops.flash_prefill(q, k, v, qpos=qpos, kpos=kpos, causal=True,
-                                 softcap=softcap)
+                                 softcap=softcap, **kernel_window(kind, cfg))
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -202,14 +240,52 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def init_kv_cache(batch: int, cache_len: int, n_kv: int, head_dim: int,
                   dtype: torch.dtype, stack: Tuple[int, ...] = (),
-                  device: Any = None) -> Dict[str, torch.Tensor]:
+                  device: Any = None,
+                  quant: bool = False) -> Dict[str, torch.Tensor]:
     shape = (*stack, batch, cache_len, n_kv, head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((*stack, batch, cache_len), -1, dtype=torch.int32,
-                          device=device),
+    cache = {
+        "k": torch.zeros(shape, dtype=torch.int8 if quant else dtype,
+                         device=device),
+        "v": torch.zeros(shape, dtype=torch.int8 if quant else dtype,
+                         device=device),
     }
+    if quant:  # one bf16 scale per (token, kv head)
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                      device=device)
+    cache["pos"] = torch.full((*stack, batch, cache_len), -1,
+                              dtype=torch.int32, device=device)
+    return cache
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [..., hd] -> (int8 values, per-vector f32 scale). ``round`` is
+    half-to-even, as ``jnp.round``."""
+    xf = x.float()
+    scale = xf.abs().amax(-1).clamp_min(1e-6) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequant(cache: Dict, name: str) -> torch.Tensor:
+    if f"{name}_scale" in cache:
+        return cache[name].float() * cache[f"{name}_scale"].float()[..., None]
+    return cache[name]
+
+
+def _write(cache: Dict, index: Any, k: torch.Tensor,
+           v: torch.Tensor) -> None:
+    """``cache[leaf][index] = ...`` for k and v (quantized on write in an
+    int8 cache, the scale stored in the scale leaf's dtype)."""
+    if "k_scale" in cache:
+        for name, x in (("k", k), ("v", v)):
+            xq, xs = _quantize_kv(x)
+            cache[name][index] = xq
+            cache[f"{name}_scale"][index] = xs.to(
+                cache[f"{name}_scale"].dtype)
+    else:
+        cache["k"][index] = k.to(cache["k"].dtype)
+        cache["v"][index] = v.to(cache["v"].dtype)
 
 
 def cache_update(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -223,8 +299,7 @@ def cache_update(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
                           device=cache["pos"].device).expand(b)
     idx = (pos % clen).long()
     rows = torch.arange(b, device=idx.device)
-    cache["k"][rows, idx] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, idx] = v_new[:, 0].to(cache["v"].dtype)
+    _write(cache, (rows, idx), k_new[:, 0], v_new[:, 0])
     cache["pos"][rows, idx] = pos
     return cache
 
@@ -234,13 +309,13 @@ def cache_fill(cache: Dict, k: torch.Tensor, v: torch.Tensor,
     """Bulk ring-buffer write after prefill, in place.
 
     k, v: [B, S, KH, hd]; positions: [S]. If S exceeds the ring capacity
-    only the last ``clen`` tokens are kept."""
+    only the last ``clen`` tokens are kept (consecutive positions map to
+    distinct ring slots, so the write is collision-free)."""
     clen = cache["k"].shape[-3]
     if k.shape[1] > clen:
         k, v, positions = k[:, -clen:], v[:, -clen:], positions[-clen:]
     idx = (positions % clen).long()
-    cache["k"][:, idx] = k.to(cache["k"].dtype)
-    cache["v"][:, idx] = v.to(cache["v"].dtype)
+    _write(cache, (slice(None), idx), k, v)
     cache["pos"][:, idx] = positions.to(torch.int32).expand(
         cache["pos"].shape[0], idx.shape[0])
     return cache
@@ -250,22 +325,26 @@ def decode_attention(q: torch.Tensor, cache: Dict, qpos: torch.Tensor, *,
                      kind: str, cfg: ModelConfig,
                      use_kernel: bool = False) -> torch.Tensor:
     """Single-token attention over the ring cache, in plain PyTorch or
-    with ``use_kernel`` through the ``flash_decode`` kernel.
+    with ``use_kernel`` through the ``flash_decode`` kernel (which reads
+    an int8 ring and its scales as stored).
 
     q: [B, H, hd]; cache k/v: [B, C, KH, hd]; cache pos: [B, C];
     qpos: [B] per-slot positions. Returns [B, H, hd].
     """
     mfn = mask_fn(kind, cfg)  # raises for layer kinds not ported
     softcap = cfg.attn.attn_logit_softcap
-    if use_kernel:  # global layers: causal, no window
+    if use_kernel:
         return ops.decode_attention(q, cache["k"], cache["v"], cache["pos"],
-                                    qpos, softcap=softcap)
+                                    qpos, k_scale=cache.get("k_scale"),
+                                    v_scale=cache.get("v_scale"),
+                                    softcap=softcap,
+                                    **kernel_window(kind, cfg))
     b, h, hd = q.shape
     kh = cache["k"].shape[-2]
     g = h // kh
     qg = q.reshape(b, kh, g, hd)
-    k_cache = cache["k"].to(q.dtype)
-    v_cache = cache["v"].to(q.dtype)
+    k_cache = _dequant(cache, "k").to(q.dtype)
+    v_cache = _dequant(cache, "v").to(q.dtype)
     s = torch.einsum("bkgd,bckd->bkgc", qg, k_cache).float() * hd ** -0.5
     if softcap is not None:
         s = torch.tanh(s / softcap) * softcap

@@ -17,6 +17,7 @@ wrappers run their plain versions.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -31,19 +32,20 @@ from repro_torch.models.layers import (init_device, rmsnorm,
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for config features outside the ported slices (dense global
-    attention with optional QKV bias, gated MLP, RMSNorm, RoPE, LoRA,
-    tied or untied embeddings): nothing degrades silently."""
+    """Raise for config features outside the ported slices: nothing
+    degrades silently. Ported: dense decoder stacks of global or local
+    (sliding-window, chunked-local) attention with RoPE, optional QKV
+    bias, QK-norm, attention and final logit softcaps, an int8 KV cache,
+    post-norms, scaled embeddings, gated or plain MLPs, tied or untied
+    embeddings; and the early-fusion VLM family (chameleon), whose image
+    tokens share the vocabulary, so it is one token stream."""
     a = cfg.attn
     unported = {
-        "family != 'dense'": cfg.family != "dense",
-        "non-global layers": any(k != "global" for k in a.layer_pattern),
-        "qk_norm": a.qk_norm,
-        "attn_logit_softcap": a.attn_logit_softcap is not None,
-        "kv_cache_quant": a.kv_cache_quant, "rope=False": not a.rope,
-        "final_logit_softcap": cfg.final_logit_softcap is not None,
-        "post_norm": cfg.post_norm,
-        "scale_embeddings": cfg.scale_embeddings,
+        "family not in ('dense', 'vlm')": cfg.family not in ("dense",
+                                                             "vlm"),
+        "attention kinds other than global/local": any(
+            k not in ("global", "local") for k in a.layer_pattern),
+        "rope=False": not a.rope,
         "moe/ssm/encoder/shared_attn": (cfg.moe is not None
                                         or cfg.ssm is not None
                                         or cfg.encoder is not None
@@ -156,7 +158,13 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
 
     def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()]
+        x = params["embed"][tokens.long()]
+        if self.cfg.scale_embeddings:
+            # sqrt(d) rounded to the param dtype first, as the reference
+            # multiplies by it (59.75 in bf16 at d 3584); a Python scalar,
+            # so no tensor is made on the device (a host sync)
+            x = x * _round_to(math.sqrt(self.cfg.d_model), x.dtype)
+        return x
 
     def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -349,6 +357,11 @@ class Model(nn.Module):
                                         lora_mode)
         cache = kvpool.scatter_decode(cache, view, tables, pos, meta)
         return logits, cache
+
+
+def _round_to(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (on the host)."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 def _invalidate_past(cache: Dict, lengths: torch.Tensor) -> Dict:

@@ -1,4 +1,6 @@
-"""Decoder stack, dense subset (``repro.models.transformer``).
+"""Decoder stack, dense subset (``repro.models.transformer``): global
+and local (sliding-window) attention slots, gated or plain MLPs, optional
+post-norms.
 
 Layers are organised into **groups** of ``period`` pattern slots with
 stacked params, as in the reference::
@@ -45,7 +47,15 @@ def n_groups(cfg: ModelConfig) -> int:
 
 
 def slot_kind(cfg: ModelConfig, p: int) -> str:
+    """Mixer kind for pattern slot p: 'global' | 'local'."""
     return cfg.attn.layer_pattern[p % len(cfg.attn.layer_pattern)]
+
+
+def cache_len_for(kind: str, cfg: ModelConfig, max_len: int) -> int:
+    """Ring length of a slot: local layers keep only their window."""
+    if kind == "local":
+        return min(cfg.attn.sliding_window, max_len)
+    return max_len
 
 
 def group_view(tree: Any, i: int) -> Any:
@@ -63,7 +73,7 @@ def group_view(tree: Any, i: int) -> Any:
 def init_slot(generator: Optional[torch.Generator], cfg: ModelConfig, p: int,
               ng: int, dtype: torch.dtype) -> Dict:
     dev, d = init_device(generator), cfg.d_model
-    return {
+    out = {
         "ln1": {"scale": torch.zeros((ng, d), dtype=dtype, device=dev)},
         "attn": attn_lib.attention_init(generator, cfg, stack=(ng,),
                                         dtype=dtype),
@@ -71,6 +81,11 @@ def init_slot(generator: Optional[torch.Generator], cfg: ModelConfig, p: int,
         "mlp": mlp_init(generator, d, cfg.d_ff, glu=cfg.glu, dtype=dtype,
                         stack=(ng,)),
     }
+    if cfg.post_norm:  # gemma2: RMSNorm of each block's output
+        for name in ("post1", "post2"):
+            out[name] = {"scale": torch.zeros((ng, d), dtype=dtype,
+                                              device=dev)}
+    return out
 
 
 def init_stack(generator: Optional[torch.Generator], cfg: ModelConfig,
@@ -145,15 +160,21 @@ def _attn_block_full(slot_p: Dict, lora_p: Optional[Dict], x: torch.Tensor,
         block_q=opts.get("block_q", 512), block_kv=opts.get("block_kv", 1024),
         use_kernel=attn_kernel)
     o = o.reshape(*x.shape[:-1], cfg.q_size)
-    return linear({"w": slot_p["attn"]["wo"]}, o, (lora_p or {}).get("o"),
-                  lora_mode)
+    o = linear({"w": slot_p["attn"]["wo"]}, o, (lora_p or {}).get("o"),
+               lora_mode)
+    if cfg.post_norm:
+        o = rmsnorm(slot_p["post1"], o, cfg.norm_eps)
+    return o
 
 
 def _ffn_block_full(slot_p: Dict, lora_p: Optional[Dict], x: torch.Tensor,
                     cfg: ModelConfig, lora_mode: LoRAMode) -> torch.Tensor:
     h = rmsnorm(slot_p["ln2"], x, cfg.norm_eps)
-    return mlp(slot_p["mlp"], h, act=cfg.act, glu=cfg.glu, lora=lora_p,
-               lora_mode=lora_mode)
+    y = mlp(slot_p["mlp"], h, act=cfg.act, glu=cfg.glu, lora=lora_p,
+            lora_mode=lora_mode)
+    if cfg.post_norm:
+        y = rmsnorm(slot_p["post2"], y, cfg.norm_eps)
+    return y
 
 
 def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -218,10 +239,14 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype, device: Any = None) -> Dict:
+    """Per slot a ring of ``cache_len_for`` entries (int8 with bf16
+    scales under ``kv_cache_quant``)."""
     ng = n_groups(cfg)
     return {f"slot{p}": attn_lib.init_kv_cache(
-        batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
-        stack=(ng,), device=device) for p in range(stack_period(cfg))}
+        batch, cache_len_for(slot_kind(cfg, p), cfg, max_len),
+        cfg.n_kv_heads, cfg.resolved_head_dim, dtype, stack=(ng,),
+        device=device, quant=cfg.attn.kv_cache_quant)
+        for p in range(stack_period(cfg))}
 
 
 def _attn_decode(sp: Dict, lp: Optional[Dict], h: torch.Tensor,
@@ -238,8 +263,11 @@ def _attn_decode(sp: Dict, lp: Optional[Dict], h: torch.Tensor,
     attn_lib.cache_update(cache_p, k, v, pos)
     o = attn_lib.decode_attention(q[:, 0], cache_p, pos, kind=kind, cfg=cfg,
                                   use_kernel=attn_kernel)
-    return linear({"w": sp["attn"]["wo"]}, o.reshape(b, 1, cfg.q_size),
-                  (lp or {}).get("o"), lora_mode)[:, 0]
+    o = linear({"w": sp["attn"]["wo"]}, o.reshape(b, 1, cfg.q_size),
+               (lp or {}).get("o"), lora_mode)[:, 0]
+    if cfg.post_norm:
+        o = rmsnorm(sp["post1"], o, cfg.norm_eps)
+    return o
 
 
 def decode_stack(params: Dict, x: torch.Tensor, cache: Dict,
@@ -266,6 +294,8 @@ def decode_stack(params: Dict, x: torch.Tensor, cache: Dict,
                                  lora_mode, attn_kernel)
             hn = rmsnorm(sp["ln2"], h, cfg.norm_eps)[:, None, :]
             y = mlp(sp["mlp"], hn, act=cfg.act, glu=cfg.glu, lora=lp,
-                    lora_mode=lora_mode)
-            h = h + y[:, 0]
+                    lora_mode=lora_mode)[:, 0]
+            if cfg.post_norm:
+                y = rmsnorm(sp["post2"], y, cfg.norm_eps)
+            h = h + y
     return h, cache

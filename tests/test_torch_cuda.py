@@ -923,3 +923,187 @@ def test_cuda_router_scores_kernel_matches_plain(dev):
     assert got.shape == want.shape == (8, 40)
     err = float(abs(got - want).max())
     assert err <= 1e-2 * float(abs(want).max()), err
+
+
+# ---------------------------------------------------------------------------
+# the dense attention variants at their models' shapes: gemma2-9b (hd 256,
+# GQA 2, window 4096, softcap 50), starcoder2-7b (hd 128, GQA 9), the int8
+# ring as the cache stores it (bf16 scales)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kh,hd,softcap", [
+    (2, 16, 8, 256, 50.0),       # gemma2-9b: the shared-memory q path
+    (1, 36, 4, 128, None),       # starcoder2-7b: GQA 9
+])
+def test_cuda_flash_prefill_window_at_model_shapes(dev, b, h, kh, hd,
+                                                   softcap):
+    """A prompt of 4352 tokens past the 4096 window, bf16: the window
+    cuts the first 256 queries' oldest keys."""
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator(device=dev).manual_seed(8)
+    s = 4352
+    q = torch.randn(b, s, h, hd, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, s, kh, hd, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, s, kh, hd, generator=gen, device=dev).bfloat16()
+    kw = dict(window=4096, softcap=softcap)
+    fp.reset_launches()
+    got = fp.flash_prefill(q, k, v, **kw)
+    want = fp.flash_prefill_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fp.launches == {"flash_prefill": 1}
+    _attn_close(got, want, torch.bfloat16)
+    # the window is real at this length: without it the late rows move
+    full = fp.flash_prefill_plain(q[:, -8:], k, v, softcap=softcap,
+                                  qpos=torch.arange(s - 8, s, device=dev),
+                                  kpos=torch.arange(s, device=dev))
+    assert (full.float() - want[:, -8:].float()).abs().max() > 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_int8_ring_with_bf16_scales(dev):
+    """gemma2-9b's decode layer on an int8 ring as the cache holds it:
+    int8 values, bf16 scales [B, C, KH] (cast to f32 by
+    ``ops.decode_attention``), a wrapped 4096-entry local ring with a
+    4096 window and softcap 50, hd 256, GQA 2; against the plain route."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.attention import _quantize_kv
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, h, kh, hd, c = 4, 16, 8, 256, 4096
+    q = torch.randn(b, h, hd, generator=gen, device=dev).bfloat16()
+    kq, ks = _quantize_kv(torch.randn(b, c, kh, hd, generator=gen,
+                                      device=dev))
+    vq, vs = _quantize_kv(torch.randn(b, c, kh, hd, generator=gen,
+                                      device=dev))
+    ks, vs = ks.bfloat16(), vs.bfloat16()
+    depth = torch.tensor([4300, 4096, 1000, 0], dtype=torch.int32,
+                         device=dev)
+    idx = torch.arange(c, dtype=torch.int32, device=dev)
+    newest = (depth[:, None] - 1 - idx) // c * c + idx
+    kv_pos = torch.where(newest >= 0, newest, -1).to(torch.int32)
+    q_pos = (depth - 1).clamp_min(0)
+    kw = dict(k_scale=ks, v_scale=vs, window=4096, softcap=50.0)
+    da.reset_launches()
+    got = ops.decode_attention(q, kq, vq, kv_pos, q_pos, **kw)
+    want = ops.decode_attention(q, kq, vq, kv_pos, q_pos, use_kernel=False,
+                                **kw)
+    torch.cuda.synchronize()
+    assert da.launches == {"flash_decode": 1}
+    _attn_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_gather_int8_and_scale_pages(dev):
+    """The page gather on an int8 K arena [ng, pages, bs, KH, hd] and its
+    bf16 scale arena [ng, pages, bs, KH] (16-byte rows at KH 8): bit-equal
+    to the indexing route."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    ng, n_pages, bs, kh, hd = 3, 20, 16, 8, 256
+    k = torch.randint(-127, 128, (ng, n_pages, bs, kh, hd), generator=gen,
+                      device=dev, dtype=torch.int8)
+    scale = torch.rand(ng, n_pages, bs, kh, generator=gen,
+                       device=dev).bfloat16()
+    tables = torch.tensor([[3, 7, 1, -1], [19, 0, -1, -1], [-1] * 4],
+                          dtype=torch.int32, device=dev)
+    paged_gather.reset_launches()
+    for arena in (k, scale):
+        got = ops.paged_gather(arena, tables)
+        want = ops.paged_gather(arena, tables, use_kernel=False)
+        torch.cuda.synchronize()
+        assert got.dtype == arena.dtype and torch.equal(got, want)
+    assert paged_gather.launches == {"paged_gather_pages": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_cuda_gemma2_decode_step_makes_no_host_sync(dev, quant):
+    """One bf16 decode step of the reduced gemma2-9b (a local and a
+    global slot, window 8 over a wrapped ring, softcaps, post-norms,
+    scaled embeddings; int8 cache with ``quant``) with the kernels, under
+    ``torch.cuda.set_sync_debug_mode("error")``: same logits as without
+    the mode, one ``flash_decode`` launch per layer."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lora import LoRAMode
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import build_model
+    cfg = reduced_config(get_config("gemma2-9b"))
+    cfg = dataclasses.replace(cfg, dtype="bfloat16", attn=dataclasses.replace(
+        cfg.attn, sliding_window=8, kv_cache_quant=quant))
+    model = build_model(cfg, dev, attn_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = model.init(gen)
+    pool = model.init_lora(gen, n_slots=4)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 16), generator=gen,
+                           device=dev, dtype=torch.int32)
+    lengths = torch.tensor([16, 9, 5], dtype=torch.int32, device=dev)
+    mode = LoRAMode("batched", torch.tensor([2, 0, 2], dtype=torch.int32,
+                                            device=dev), 0.5, "sgmv")
+    _, cache = model.prefill(params, {"tokens": tokens},
+                             model.init_cache(3, 32), pool, mode,
+                             lengths=lengths)
+    nxt = tokens[:, 0].contiguous()
+
+    def step():
+        c = {k: {n: v.clone() for n, v in node.items()}
+             for k, node in cache.items()}
+        return model.decode_step(params, nxt, c, lengths, pool, mode)[0]
+
+    want = step()
+    torch.cuda.synchronize()
+    da.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert da.launches == {"flash_decode": cfg.n_layers}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", [
+    ("gemma2-9b", dict(sliding_window=8, attn_logit_softcap=2.0)),
+    ("starcoder2-7b", dict(sliding_window=8)),
+    ("chameleon-34b", {}),
+    ("gemma2-9b", dict(sliding_window=8, kv_cache_quant=True)),
+])
+def test_cuda_variant_kernel_route_matches_plain_route(dev, arch, over):
+    """The reduced variants in f32 on the card: prefill past the window
+    and two decode steps with the attention kernels against the plain
+    attention code, within 1e-4 of max|logit| (an int8 ring: both
+    dequantize in f32 here). Each decode step runs in both routes from
+    the plain route's cache and tokens, so an int8 value that the two
+    routes' f32 K/V round to neighbouring steps cannot compound."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import build_model
+    cfg = reduced_config(get_config(arch))
+    cfg = dataclasses.replace(cfg, dtype="float32", attn=dataclasses.replace(
+        cfg.attn, **over))
+    plain = build_model(cfg, dev)
+    params = plain.init(torch.Generator(device=dev).manual_seed(0))
+    kern = build_model(cfg, dev, attn_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 16), generator=gen,
+                           device=dev, dtype=torch.int32)
+    lengths = torch.tensor([16, 9, 5], dtype=torch.int32, device=dev)
+    models = {"plain": plain, "kernel": kern}
+    out = {name: m.prefill(params, {"tokens": tokens}, m.init_cache(3, 32),
+                           lengths=lengths) for name, m in models.items()}
+    logits = {name: [lp] for name, (lp, _) in out.items()}
+    cache = out["plain"][1]
+    nxt, pos = torch.argmax(logits["plain"][0], -1).int(), lengths.clone()
+    for _ in range(2):
+        for name, m in models.items():
+            c = {k: {n: v.clone() for n, v in node.items()}
+                 for k, node in cache.items()}
+            ld, c = m.decode_step(params, nxt, c, pos)
+            logits[name].append(ld)
+            if name == "plain":
+                cache = c
+        nxt, pos = torch.argmax(logits["plain"][-1], -1).int(), pos + 1
+    torch.cuda.synchronize()
+    for got, want in zip(logits["kernel"], logits["plain"]):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err

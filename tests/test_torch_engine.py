@@ -36,8 +36,8 @@ from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.serving import engine as jax_engine  # noqa: E402
 from repro.serving import workload as jax_workload  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import (MoEConfig, get_config,  # noqa: E402
-                                 reduced_config)
+from repro_torch.configs import (EncoderConfig, MoEConfig,  # noqa: E402
+                                 get_config, reduced_config)
 from repro_torch.serving import workload  # noqa: E402
 from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig  # noqa: E402
 
@@ -188,17 +188,19 @@ def _summary_json(summary):
 def _unported_cfg(feature):
     """A config with one feature outside the ported slices."""
     _, tcfg = _configs()
-    if feature == "gemma2":
-        return reduced_config(get_config("gemma2-9b"))
-    if feature == "kv_cache_quant":
-        return dataclasses.replace(tcfg, attn=dataclasses.replace(
-            tcfg.attn, kv_cache_quant=True))
+    if feature == "mamba2":
+        return reduced_config(get_config("mamba2-130m"))
+    if feature == "encoder":   # whisper's encoder tower
+        return dataclasses.replace(tcfg, encoder=EncoderConfig(n_layers=2))
+    if feature == "shared_attn":   # zamba2's weight-tied block
+        return dataclasses.replace(tcfg, shared_attn_every=2)
     return dataclasses.replace(tcfg, moe=MoEConfig(n_experts=4, top_k=2))
 
 
 @pytest.mark.parametrize("change,msg", [
-    ("gemma2", "arch 'gemma2-9b'"),
-    ("kv_cache_quant", "kv_cache_quant"),
+    ("mamba2", "arch 'mamba2-130m'"),
+    ("encoder", "encoder"),
+    ("shared_attn", "shared_attn"),
     ("moe", "moe"),
 ])
 def test_unported_features_raise(change, msg):

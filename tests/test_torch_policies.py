@@ -173,6 +173,33 @@ def test_policy_matches_reference_f32(monkeypatch, weights, policy, kv):
         assert port[0].kv_stats["allocs"] > 0
 
 
+@pytest.mark.parametrize("kv", ["dense", "paged"])
+@pytest.mark.parametrize("policy,alpha", [("llamacpp", 1.0), ("dlora", 0.0)])
+def test_policy_with_prefix_cache_and_chunks_matches_reference(
+        monkeypatch, weights, policy, alpha, kv):
+    """The merged suffix steps: chunked prefill (dense) and the prefix
+    cache with chunks (paged) over tenants' system prompts, under
+    llamacpp (merged only) and dlora on adapter-diverse traffic (both
+    kinds of step)."""
+    cfg = configs()[1]
+    kw = dict(prefill_chunk=16)
+    if kv == "paged":
+        kw.update(prefix_cache=True, kv_block_size=8)
+    ref, port = serve_pair(
+        monkeypatch, weights, ecfg_kwargs(policy, kv, **kw),
+        trace_kwargs(cfg, system_prompt_len=16, alpha=alpha,
+                     input_range=(4, 30)))
+    assert_same_run(ref, port)
+    kinds = {k[0] for k in port[2]._durations}
+    assert kinds == {k[0] for k in ref[2]._durations}
+    sfx = "prefill_sfx_dense" if kv == "dense" else "prefill_sfx"
+    assert f"{sfx}_merged" in kinds
+    if policy == "dlora":
+        assert sfx in kinds and "decode" in kinds
+    if kv == "paged":
+        assert port[0].prefix_stats["hit_requests"] > 0
+
+
 # ---------------------------------------------------------------------------
 # the reference's dlora policy tests (tests/test_dlora_policy.py)
 # ---------------------------------------------------------------------------
