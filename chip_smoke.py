@@ -161,6 +161,39 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     bf16, and the suffix and chunk steps run other GEMM and SGMV shapes
     than whole-prompt prefills) and in f32 (streams held equal).
 
+12. The MoE family at full width (after phase 11), bf16, random weights
+    drawn one stacked group at a time (``_moe_params``: the routers f32,
+    the expert stacks [ng, E, d, f] at fan-in scale). Each model's SGMV
+    and attention kernels at its shapes, as in phase 11, and one MoE
+    layer's expert FFN (three ``torch.bmm`` over all E experts) at a
+    decode step's buffer and at the route check's prefill, beside the
+    bytes of all E experts' weights at the HBM rate (the decode step's
+    floor: the capacity path reads every expert), and the whole
+    ``moe_block`` at decode.
+    dbrx-132b (full width, 8 of its 40 layers: d 6144, 48/8 heads, d_ff
+    10752, vocab 100352, 16 experts top-4; LoRA rank 16 on q,k,v,o, a
+    pool of 8, 16 adapters): a route check at [2, 4096] (8192 choices a
+    MoE layer past the lossless 4096: a capacity of 2560 an expert, the
+    dropped choices reported) and 4 lossless decode steps, the kernel
+    route against plain attention and einsum LoRA within ``ROUTE_TOL``;
+    dense vs paged ``edgelora`` serves of 8 requests (groups of up to 8 x
+    256 tokens: a finite capacity in serving too), equal streams and
+    summaries; ``llamacpp`` (merged only) and ``dlora`` (unmerges) serves
+    on short prompts; a paged serve with the prefix cache and 32-token
+    chunks against a dense one, counted in bf16 at 8 layers and held
+    equal in f32 at 2 layers (every group lossless, so chunks drop
+    nothing a whole prompt keeps). llama4-maverick (full width, 4 of its
+    48 layers and 32 of its 128 experts: d 5120, 40/8 heads, d_ff 8192,
+    vocab 202048, top-1 and a shared expert, MoE on slots 1 and 3, three
+    chunked-local slots of 8192 and a global one): a route check at
+    [2, 8704] past the chunk boundary and 4 decode steps on the chunked
+    rings; dense vs paged ``edgelora`` serves of 8 requests (3 prompts of
+    8200-8600 tokens, ``max_ctx`` 8704), equal streams; the prefix cache
+    and chunks refused with the reference's ``ValueError``. Every step
+    call of every serve counted: 32 (dbrx) and 16 (llama4) launches of
+    each SGMV kernel an unmerged step, one attention launch a layer, the
+    gathers of a paged decode step (2 and 8).
+
 Each serve's kernel launch counts are zeroed just before it and read just
 after; every kernel its path runs must have launched.
 
@@ -1559,7 +1592,9 @@ NORM_STD = 0.1
 
 def prepare_weights(torch, cfg, params, gen) -> None:
     """In place: stacked weights rescaled from the reference init
-    (stddev 1/sqrt(n_groups)) to fan-in scale 1/sqrt(d_in), QKV biases,
+    (stddev 1/sqrt(n_groups)) to fan-in scale 1/sqrt(d_in) (an MoE
+    block's f32 router [ng, d, E], its expert stacks [ng, E, d_in, d_out]
+    and its shared expert included), QKV biases,
     QK-norm and post-norm scales drawn nonzero, and a tied embedding
     rescaled to unit stddev (the reference draws it at 1/sqrt(vocab),
     which through the tied head gives logits of ~0.1 and top-2 ties
@@ -1573,8 +1608,11 @@ def prepare_weights(torch, cfg, params, gen) -> None:
                     module["scale"].normal_(0.0, NORM_STD, generator=gen)
                     continue
                 for name, w in module.items():
-                    if isinstance(w, dict):             # q_norm, k_norm
+                    if isinstance(w, dict) and "scale" in w:  # q/k_norm
                         w["scale"].normal_(0.0, NORM_STD, generator=gen)
+                    elif isinstance(w, dict):   # MoE experts, shared expert
+                        for x in w.values():
+                            x.mul_((x.shape[0] / x.shape[-2]) ** 0.5)
                     elif w.dim() == 3:
                         w.mul_((w.shape[0] / w.shape[-2]) ** 0.5)
                     elif name in ("bq", "bk", "bv"):
@@ -2051,7 +2089,7 @@ def _clone_cache(cache):
 
 
 def route_check(torch, dev, cfg, params, spec, routes, *, lengths, s,
-                decode_steps, where, idle_row=False):
+                decode_steps, where, idle_row=False, on_route=None):
     """One bf16 prefill of ``len(lengths)`` right-padded rows of ``s``
     tokens (per-row adapters from an 8-slot pool, B nonzero) and
     ``decode_steps`` decode steps on each route of ``routes`` (name ->
@@ -2063,7 +2101,8 @@ def route_check(torch, dev, cfg, params, spec, routes, *, lengths, s,
     it (the agreement over all live rows reported beside); each route
     launches each attention kernel once per layer if it runs them, each
     SGMV kernel once per LoRA module and layer per step if it runs them,
-    and nothing else."""
+    and nothing else. ``on_route(name)`` is called before each route's
+    step."""
     from repro_torch.core.lora import LoRAMode
     from repro_torch.models import build_model
 
@@ -2087,6 +2126,8 @@ def route_check(torch, dev, cfg, params, spec, routes, *, lengths, s,
     def run(route, fn):
         on, backend = routes[route]
         mode = LoRAMode("batched", sids, cfg.lora.scale, backend)
+        if on_route is not None:
+            on_route(route)
         before = _counts()
         with torch.no_grad():
             res = fn(models[on], mode)
@@ -2147,12 +2188,13 @@ def route_check(torch, dev, cfg, params, spec, routes, *, lengths, s,
     return res
 
 
-def long_trace(cfg, n_adapters, seed, n=8, long_rows=(0, 3, 5)):
+def long_trace(cfg, n_adapters, seed, n=8, long_rows=(0, 3, 5),
+               lengths=(4100, 4400)):
     """``n`` requests of a burst (prompts 40-200 tokens, outputs 16-32:
     gemma2's unmerged decode step is host-bound at ~0.3 s, and 48-token
     outputs made each of its four serves ~30 s), three of them
-    (``long_rows``) extended to 4100-4400 tokens, past the 4096
-    window."""
+    (``long_rows``) extended to ``lengths`` tokens (default 4100-4400,
+    past the 4096 window)."""
     import numpy as np
 
     from repro_torch.serving.workload import WorkloadConfig, generate_trace
@@ -2166,7 +2208,7 @@ def long_trace(cfg, n_adapters, seed, n=8, long_rows=(0, 3, 5)):
     for i in long_rows:
         r = trace[i]
         old = np.asarray(r.prompt_tokens)
-        length = int(rng.integers(4100, 4401))
+        length = int(rng.integers(lengths[0], lengths[1] + 1))
         r.prompt_tokens = np.concatenate([old, rng.integers(
             0, cfg.vocab_size, length - len(old))]).astype(old.dtype)
         r.prompt_len = length
@@ -2442,16 +2484,406 @@ def variants_phase(torch, dev):
     return out
 
 
-def variant_attention_rows(torch, dev, cfg):
+# ---------------------------------------------------------------------------
+# phase 12: the MoE family at full width: dbrx-132b (8 of 40 layers) and
+# llama4-maverick (4 of 48 layers, 32 of 128 experts)
+# ---------------------------------------------------------------------------
+
+# dbrx-132b's 264 GB of bf16 weights: 8 of its 40 layers (6.3 GB of
+# experts a layer, ~55 GB with the untied embedding and head) leave room
+# for a pool, caches and the plain route
+DBRX_LAYERS = 8
+DBRX_S, DBRX_LENGTHS = 4096, (4096, 3900)
+# llama4-maverick: 128 experts x 3 x 5120 x 8192 are 30 GiB a MoE layer;
+# one iRoPE period (4 layers: local, MoE-local, local, MoE-global) with
+# 32 of the 128 experts holds ~20 GiB, leaving room for 8.7K-token prompts
+LLAMA4_LAYERS, LLAMA4_EXPERTS = 4, 32
+LLAMA4_S, LLAMA4_LENGTHS = 8704, (8704, 8450)
+LLAMA4_CTX = 8704       # its serves' max_ctx: 8600 + 32 tokens fit
+LLAMA4_LONG = (8200, 8600)      # its serves' long prompts, past the chunk
+# the decode kernel rows' ring depths (the last row idle)
+DBRX_DEPTHS = (4096, 4000, 3000, 2048, 1000, 200, 1, 0)
+LLAMA4_DEPTHS = (8704, 8600, 8450, 8193, 8192, 1000, 1, 0)
+MOE_DECODE_STEPS = 4
+# a token whose experts differ between the kernel and the plain route is a
+# near-tie when the plain route's own top-k mass exceeds the kernel
+# route's choice by at most this probability: the routes' hidden states
+# differ by up to ROUTE_TOL, which moves a router probability by ~1e-2
+ROUTE_FLIP_MARGIN = 5e-2
+
+
+def _moe_params(torch, dev, cfg, seed):
+    """``Model.init``'s distributions for ``cfg`` drawn leaf by leaf, a
+    stacked leaf one group at a time in f32 (a dbrx expert leaf drawn
+    whole would take 34 GB of f32 beside its bf16 copy), then
+    ``prepare_weights``. The router stays f32."""
+    import math
+
+    from repro_torch.models import build_model
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(node, name):
+        if isinstance(node, dict):
+            return {k: draw(v, k) for k, v in node.items()}
+        out = torch.zeros(node.shape, dtype=node.dtype, device=dev)
+        if name == "scale":                    # norms: (1 + 0)
+            return out
+        std = 1.0 / max(1.0, math.sqrt(node.shape[0]))
+        # a stacked leaf ([ng, ...], 3-D and up) one group at a time
+        parts = out.unbind(0) if out.dim() >= 3 else (out,)
+        tmp = torch.empty(parts[0].shape, dtype=torch.float32, device=dev)
+        for part in parts:
+            torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0,
+                                        generator=gen)
+            part.copy_(tmp.mul_(std))
+        return out
+
+    params = draw(build_model(cfg, dev)._param_tree(None), "")
+    prepare_weights(torch, cfg, params, gen)
+    n = sum(p.numel() for p in _leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k}: {n / 1e9:.2f}B params; adapters of "
+        f"{cfg.lora_adapter_bytes() / 1e6:.1f} MB")
+    return params
+
+
+class _MoEProbe:
+    """Hooks ``moe.route`` for a route check. The kernel route's calls
+    record their expert choices; each other route's calls replay them in
+    order (gates from its own router probabilities at those experts), so
+    that a bf16 near-tie broken the other way in routing, a discrete jump
+    in a token's output, cannot stand for a kernel fault: both routes run
+    the same dispatch. Each replayed call counts the tokens whose own top-k
+    differs and the largest probability margin among them (its own top-k
+    mass less the pinned experts'). Every capacity dispatch records its
+    choices, capacity and dropped choices (read on the host)."""
+
+    def __init__(self, torch) -> None:
+        from repro_torch.models import moe
+        self.torch, self.moe, self._route = torch, moe, moe.route
+        self.recorded, self.i, self.replay = [], 0, False
+        self.flips, self.dispatch = [], []
+
+    def on_route(self, name: str) -> None:
+        self.replay, self.i = name != "kernels", 0
+        if not self.replay:
+            self.recorded = []
+
+    def route(self, params, xf, m):
+        torch, moe = self.torch, self.moe
+        gates, eids, aux = self._route(params, xf, m)
+        if not self.replay:
+            self.recorded.append(eids)
+        else:
+            want = self.recorded[self.i]
+            self.i += 1
+            probs = torch.softmax(xf.float() @ params["router"].float(), -1)
+            margin = (probs.gather(1, eids).sum(-1)
+                      - probs.gather(1, want).sum(-1))
+            differ = (eids.sort(-1).values != want.sort(-1).values).any(-1)
+            self.flips.append(dict(tokens=xf.shape[0],
+                                   flipped=int(differ.sum()),
+                                   max_margin=float(margin.max())))
+            gates, eids = probs.gather(1, want), want
+            if m.top_k > 1:
+                gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        t = xf.shape[0]
+        if not 0 < t * m.top_k <= m.gather_threshold:
+            pos = moe.queue_positions(eids.reshape(-1), m.n_experts)
+            cap = moe.capacity(t, m)
+            self.dispatch.append(dict(choices=t * m.top_k, capacity=cap,
+                                      dropped=int((pos >= cap).sum())))
+        return gates, eids, aux
+
+    def __enter__(self):
+        self.moe.route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self._route
+
+
+def expert_rows(torch, dev, cfg, params, prefill_t):
+    """One MoE layer's expert FFN (``moe._expert_ffn``: three batched
+    GEMMs over all E experts) at a decode step's buffer (8 rows: the
+    lossless capacity 8·k a expert) and at the route check's prefill
+    (``prefill_t`` tokens: its capacity), bf16, timed beside its bound
+    (all E experts' weights read once at the HBM rate, or the GEMMs'
+    operations at the bf16 peak); and the whole ``moe_block`` at the
+    decode step (routing, dispatch, experts, combine, a shared expert)."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import group_view, slot_is_moe
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    slot = next(p for p in range(len(params["layers"]))
+                if slot_is_moe(cfg, p))
+    layer = group_view(params["layers"][f"slot{slot}"]["moe"], 0)
+    m, d, f = cfg.moe, cfg.d_model, cfg.d_ff
+    w_bytes = 3 * m.n_experts * d * f * 2
+    rows = []
+    for case, t in (("decode", N_SLOTS), ("prefill", prefill_t)):
+        cap = moe.capacity(t, m)
+        buf = torch.randn(m.n_experts, cap, d, generator=gen,
+                          device=dev).bfloat16()
+        out = moe._expert_ffn(layer["experts"], buf, act=cfg.act, glu=cfg.glu)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out.float()).all()),
+              f"{cfg.name}: non-finite expert FFN")
+        bnd, by = bound_ms(w_bytes + 2 * buf.numel() * 2,
+                           6.0 * m.n_experts * cap * d * f, "bfloat16")
+        row = dict(kernel="expert_ffn", model=cfg.name, case=case, T=t,
+                   capacity=cap, experts=m.n_experts,
+                   shape=f"[{m.n_experts}, {cap}, {d}] x [{m.n_experts}, "
+                         f"{d}, {f}] x3 bf16",
+                   weight_bytes=w_bytes, bound_ms=bnd, bound_by=by,
+                   ms=cuda_ms(torch, lambda: moe._expert_ffn(
+                       layer["experts"], buf, act=cfg.act, glu=cfg.glu),
+                       flush, iters=10))
+        if case == "decode":
+            x = torch.randn(N_SLOTS, 1, d, generator=gen,
+                            device=dev).bfloat16()
+            row["moe_block_ms"] = cuda_ms(
+                torch, lambda: moe.moe_block(layer, x, cfg), flush, iters=10)
+            row["moe_block_host_us"] = enqueue_us(
+                torch, lambda: moe.moe_block(layer, x, cfg), iters=10)
+        rows.append(row)
+        log("expert_ffn " + json.dumps(row))
+        del buf, out
+    return rows
+
+
+def moe_route_check(torch, dev, cfg, params, spec, *, lengths, s, where):
+    """``route_check`` (kernels against plain attention and einsum LoRA)
+    over a ``len(lengths)`` x ``s`` prefill and MOE_DECODE_STEPS decode
+    steps, the plain route's experts pinned to the kernel route's
+    (``_MoEProbe``): routing near-ties it would break the other way are
+    counted with their probability margins, each at most
+    ``ROUTE_FLIP_MARGIN``; dropped choices recorded per dispatch."""
+    routes = {"kernels": ROUTES["kernels"], "plain": ROUTES["plain"]}
+    with _MoEProbe(torch) as probe:
+        res = route_check(torch, dev, cfg, params, spec, routes,
+                          lengths=lengths, s=s,
+                          decode_steps=MOE_DECODE_STEPS, where=where,
+                          on_route=probe.on_route)
+    res["dispatch"], res["routing_flips"] = probe.dispatch, probe.flips
+    prefill = [r for r in probe.dispatch
+               if r["choices"] == len(lengths) * s * cfg.moe.top_k]
+    log(f"  {where}: prefill capacity {prefill[0]['capacity']} an expert "
+        f"for {prefill[0]['choices']} choices; dropped per MoE layer "
+        f"(both routes): {[r['dropped'] for r in prefill]}; plain-route "
+        f"routing flips per call: {[f['flipped'] for f in probe.flips]}, "
+        f"largest margin {max(f['max_margin'] for f in probe.flips):.2e}")
+    check(all(r["dropped"] == 0 for r in probe.dispatch
+              if r["choices"] <= 4096), f"{where}: a lossless step dropped")
+    check(all(f["max_margin"] <= ROUTE_FLIP_MARGIN for f in probe.flips),
+          f"{where}: the plain route's own experts differ from the kernel "
+          f"route's beyond a near-tie: {probe.flips}")
+    return res
+
+
+def moe_phase(torch, dev):
+    """Phase 12 (see the module docstring). Returns its record, keyed by
+    model as phase 11's: route checks, serves (their launches included),
+    kernel rows at the new shapes and the expert FFN's rows."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
+    from repro_torch.serving.workload import WorkloadConfig, generate_trace
+
+    out = {}
+    # ---- dbrx-132b, 8 of 40 layers ----------------------------------------
+    t0 = time.perf_counter()
+    full = get_config("dbrx-132b")
+    check(full.n_layers == 40 and full.d_model == 6144 and full.n_heads == 48
+          and full.n_kv_heads == 8 and full.resolved_head_dim == 128
+          and full.d_ff == 10752 and full.vocab_size == 100352
+          and full.moe.n_experts == 16 and full.moe.top_k == 4
+          and full.moe.gather_threshold == 0 and not full.moe.shared_expert
+          and full.lora.rank == 16
+          and full.lora.target_modules == ("q", "k", "v", "o"),
+          "not the full dbrx-132b config")
+    cfg = dataclasses.replace(full, n_layers=DBRX_LAYERS,
+                              lora=dataclasses.replace(
+                                  full.lora,
+                                  n_adapters=2 * full.lora.max_resident))
+    log(f"dbrx-132b: full width, {DBRX_LAYERS} of its {full.n_layers} "
+        f"layers ({full.param_count() / 1e9:.1f}B params at full depth)")
+    spec = variant_spec(cfg)
+    rec = dict(layers=DBRX_LAYERS, full_layers=full.n_layers,
+               kernel_rows=kernel_phase(torch, dev, spec),
+               attention_rows=variant_attention_rows(
+                   torch, dev, cfg, ctx=DBRX_S, depths=DBRX_DEPTHS,
+                   prefill=(len(DBRX_LENGTHS), DBRX_S)))
+    params = _moe_params(torch, dev, cfg, 24)
+    check(all(slot["moe"]["router"].dtype == torch.float32
+              for slot in params["layers"].values()), "router not f32")
+    rec["expert_rows"] = expert_rows(torch, dev, cfg, params,
+                                     len(DBRX_LENGTHS) * DBRX_S)
+    source = make_adapter_source(torch, dev, cfg)
+    rec["route_check"] = moe_route_check(
+        torch, dev, cfg, params, spec, lengths=DBRX_LENGTHS, s=DBRX_S,
+        where="dbrx-132b")
+    # serves: 8 requests of 40-200 tokens in buckets of 64 and 256 (a
+    # group of 8 x 256 is 8192 choices: a finite capacity of 640 a expert)
+    serve_kw = dict(max_ctx=MAX_CTX, prompt_buckets=(64, 256))
+
+    def burst(n=8, **kw):
+        wl = dict(n_adapters=cfg.lora.n_adapters, request_rate=200.0,
+                  duration=0.1, input_range=(40, 200), output_range=(8, 24),
+                  vocab_size=cfg.vocab_size, seed=15)
+        wl.update(kw)
+        trace = generate_trace(WorkloadConfig(**wl))[:n]
+        check(len(trace) == n, f"burst of {len(trace)} requests")
+        return trace
+
+    rec["serve_edgelora"] = _summaries(dense_paged_pair(
+        torch, dev, cfg, params, source, spec, burst,
+        "dbrx-132b edgelora", **serve_kw))
+    short_kw = dict(max_ctx=MAX_CTX, prompt_buckets=(32, 64, 128))
+    short = dict(n=10, input_range=(8, 64), output_range=(4, 12))
+    for policy in ("llamacpp", "dlora"):
+        eng = _variant_engine(torch, dev, cfg, params, source, policy,
+                              "dense", **short_kw)
+        run = qwen2_serve(torch, dev, f"dbrx-132b {policy} dense", eng,
+                          burst(**short), spec)
+        if policy == "llamacpp":
+            check(run["unmerged_calls"] == 0 and run["merged_calls"] > 0
+                  and run["launches"]["sgmv_shrink"] == 0,
+                  "dbrx-132b llamacpp: unmerged steps ran")
+        else:
+            check(run["unmerged_calls"] > 0,
+                  "dbrx-132b dlora: no unmerged step on a diverse trace")
+        run["summary"] = dataclasses.asdict(run["summary"])
+        rec[f"serve_{policy}"] = run
+        del eng
+        _release(torch)
+    # the prefix cache and 32-token chunks: groups of at most 8 x 128
+    # tokens (4096 choices: lossless), so a chunked prefill drops nothing
+    # a whole-prompt one keeps. bf16 at 8 layers counted; f32 held equal
+    sys_len, chunk = 32, 32
+    prefix = dict(n=12, n_adapters=4, input_range=(8, 64),
+                  output_range=(4, 12), system_prompt_len=sys_len,
+                  duration=0.2, seed=16)
+    paged_kw = dict(prefix_cache=True, prefill_chunk=chunk)
+    runs = dense_paged_pair(
+        torch, dev, cfg, params, source, spec, lambda: burst(**prefix),
+        "dbrx-132b prefix+chunk bfloat16", paged_kw=paged_kw,
+        same_summary=False, same_streams=False, **short_kw)
+    rec["serve_prefix_chunk_bfloat16"] = _summaries(runs)
+    del params, source
+    _release(torch)
+    c2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = _moe_params(torch, dev, c2, 25)
+    spec2 = variant_spec(c2)
+    runs = dense_paged_pair(
+        torch, dev, c2, params, make_adapter_source(torch, dev, c2), spec2,
+        lambda: burst(**prefix), "dbrx-132b (2 layers) prefix+chunk float32",
+        paged_kw=paged_kw, same_summary=False, **short_kw)
+    for dname, r in (("float32", runs["paged"]),
+                     ("bfloat16", rec["serve_prefix_chunk_bfloat16"][
+                         "paged"])):
+        ps = r["summary"].prefix_stats if dname == "float32" else r[
+            "summary"]["prefix_stats"]
+        check(ps["hit_requests"] > 0 and ps["saved_prefill_tokens"] > 0,
+              f"dbrx-132b {dname}: no prefix hits: {ps}")
+        check(r["step_names"].get("_prefill_suffix", 0) > 0,
+              f"dbrx-132b {dname}: no suffix (prefix or chunk) prefill")
+    rec["serve_prefix_chunk_float32"] = _summaries(runs)
+    del params
+    _release(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"dbrx-132b {rec['seconds']:.1f}s")
+    out["dbrx-132b"] = rec
+
+    # ---- llama4-maverick, 4 of 48 layers, 32 of 128 experts -------------
+    t0 = time.perf_counter()
+    full = get_config("llama4-maverick-400b-a17b")
+    check(full.n_layers == 48 and full.d_model == 5120 and full.n_heads == 40
+          and full.n_kv_heads == 8 and full.d_ff == 8192
+          and full.vocab_size == 202048 and full.moe.n_experts == 128
+          and full.moe.top_k == 1 and full.moe.shared_expert
+          and full.moe.moe_layer_period == 2
+          and full.attn.layer_pattern == ("local", "local", "local",
+                                          "global")
+          and full.attn.chunked_local and full.attn.sliding_window == 8192,
+          "not the full llama4-maverick config")
+    cfg = dataclasses.replace(
+        full, n_layers=LLAMA4_LAYERS,
+        moe=dataclasses.replace(full.moe, n_experts=LLAMA4_EXPERTS),
+        lora=dataclasses.replace(full.lora,
+                                 n_adapters=2 * full.lora.max_resident))
+    log(f"llama4-maverick: full width, {LLAMA4_LAYERS} of its "
+        f"{full.n_layers} layers, {LLAMA4_EXPERTS} of its "
+        f"{full.moe.n_experts} experts ({full.param_count() / 1e9:.0f}B "
+        "params at full size)")
+    spec = variant_spec(cfg)
+    rec = dict(layers=LLAMA4_LAYERS, full_layers=full.n_layers,
+               experts=LLAMA4_EXPERTS, full_experts=full.moe.n_experts,
+               kernel_rows=kernel_phase(torch, dev, spec),
+               attention_rows=variant_attention_rows(
+                   torch, dev, cfg, ctx=LLAMA4_CTX, depths=LLAMA4_DEPTHS,
+                   prefill=(len(LLAMA4_LENGTHS), LLAMA4_S)))
+    params = _moe_params(torch, dev, cfg, 26)
+    rec["expert_rows"] = expert_rows(torch, dev, cfg, params,
+                                     len(LLAMA4_LENGTHS) * LLAMA4_S)
+    source = make_adapter_source(torch, dev, cfg)
+    rec["route_check"] = moe_route_check(
+        torch, dev, cfg, params, spec, lengths=LLAMA4_LENGTHS, s=LLAMA4_S,
+        where="llama4-maverick")
+
+    runs = dense_paged_pair(
+        torch, dev, cfg, params, source, spec,
+        lambda: long_trace(cfg, cfg.lora.n_adapters, 17,
+                           lengths=LLAMA4_LONG),
+        "llama4-maverick edgelora", max_ctx=LLAMA4_CTX,
+        prompt_buckets=(64, 256))
+    for r in runs.values():
+        check(r["step_calls"].get("decode", 0) > 0
+              and max(len(v) for v in r["streams"].values()) >= 16,
+              "llama4-maverick: no long decode")
+    rec["serve_edgelora"] = _summaries(runs)
+    refusals = {}
+    for feature, kw in (("prefix_cache", dict(kv_backend="paged",
+                                              prefix_cache=True)),
+                        ("prefill_chunk", dict(prefill_chunk=32))):
+        try:
+            EdgeLoRAEngine(cfg, EngineConfig(n_slots=N_SLOTS,
+                                             max_ctx=LLAMA4_CTX, **kw),
+                           params=params, device=dev,
+                           adapter_source=source)
+        except ValueError as e:
+            refusals[feature] = str(e)
+        _release(torch)
+        check(feature in refusals
+              and "window-local ring" in refusals[feature],
+              f"llama4-maverick: {feature} was not refused: {refusals}")
+    rec["refusals"] = refusals
+    del params, source
+    _release(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"llama4-maverick {rec['seconds']:.1f}s")
+    out["llama4-maverick-400b-a17b"] = rec
+    return out
+
+
+def variant_attention_rows(torch, dev, cfg, ctx=LONG_CTX,
+                           depths=(4400, 4300, 4200, 4097, 1000, 200, 1, 0),
+                           prefill=None):
     """``flash_decode`` and ``flash_prefill`` at ``cfg``'s layer shapes,
     bf16, against their plain versions, timed beside them, the library
     call (``scaled_dot_product_attention`` with GQA and the mask) and the
-    bound: decode over a ring of ``cache_len_for(kind, LONG_CTX)`` entries
-    (8 rows at depths 4400 down to 1, one idle), with the window and
-    softcap of the model's local slot (gemma2: also the int8 ring with
+    bound: decode over a ring of ``cache_len_for(kind, ctx)`` entries
+    (8 rows at ``depths``, the last idle), with the window (or chunk) and
+    softcap of the model's first slot (gemma2: also the int8 ring with
     bf16 scales as the cache stores them, through ``ops.decode_attention``,
     the scales' cast timed apart); prefill of ``LONG_LENGTHS``-row prompts
-    of ``LONG_S`` tokens past the window (chameleon: 8 rows of 64)."""
+    of ``LONG_S`` tokens past the window (chameleon: 8 rows of 64), or of
+    ``prefill`` = (rows, tokens). A chunked-local slot's mask keeps the
+    keys of the query's own chunk; SDPA takes it as a boolean mask."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
@@ -2466,6 +2898,7 @@ def variant_attention_rows(torch, dev, cfg):
     g = h // kh
     kind = cfg.attn.layer_pattern[0]
     window = cfg.attn.sliding_window if kind == "local" else None
+    chunked = window is not None and cfg.attn.chunked_local
     softcap = cfg.attn.attn_logit_softcap
     bf = torch.bfloat16
     rows = []
@@ -2484,20 +2917,21 @@ def variant_attention_rows(torch, dev, cfg):
         return d
 
     # ---- flash_decode ---------------------------------------------------
-    b, c = N_SLOTS, cache_len_for(kind, cfg, LONG_CTX)
-    depth = torch.tensor([4400, 4300, 4200, 4097, 1000, 200, 1, 0],
-                         dtype=torch.int32, device=dev)
+    b, c = N_SLOTS, cache_len_for(kind, cfg, ctx)
+    depth = torch.tensor(depths, dtype=torch.int32, device=dev)
     idx = torch.arange(c, dtype=torch.int32, device=dev)
     newest = (depth[:, None] - 1 - idx) // c * c + idx
     kv_pos = torch.where(newest >= 0, newest, -1).to(torch.int32)
     q_pos = (depth - 1).clamp_min(0)
     visible = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
-    if window is not None:
+    if chunked:
+        visible &= (q_pos[:, None] // window) == (kv_pos // window)
+    elif window is not None:
         visible &= (q_pos[:, None] - kv_pos) < window
     no_key = ~visible.any(1)
     n_vis = int(visible.sum())
     mask = visible[:, None, None, :]
-    kw = dict(window=window, softcap=softcap)
+    kw = dict(window=window, chunked=chunked, softcap=softcap)
     q = randn(b, h, hd)
     kinds = [("bfloat16", None)]
     if cfg.name == "gemma2-9b":
@@ -2539,8 +2973,9 @@ def variant_attention_rows(torch, dev, cfg):
             kernel="flash_decode", model=cfg.name, dtype="bfloat16",
             kv_dtype=kvname,
             shape=f"q [{b},{h},{hd}] k,v [{b},{c},{kh},{hd}] {kvname}, "
-                  f"window {window}, softcap {softcap}, depths "
-                  f"{depth.tolist()}", visible_entries=n_vis,
+                  f"{'chunk' if chunked else 'window'} {window}, softcap "
+                  f"{softcap}, depths {depth.tolist()}",
+            visible_entries=n_vis,
             max_abs_err=e, ms=cuda_ms(torch, call, flush),
             host_us=enqueue_us(torch, call),
             plain_ms=cuda_ms(torch, plain, flush),
@@ -2566,15 +3001,28 @@ def variant_attention_rows(torch, dev, cfg):
     pw = window
     b, s = ((len(LONG_LENGTHS), LONG_S) if pw is not None
             else (N_SLOTS, 64))
+    if prefill is not None:
+        b, s = prefill
     q, k, v = randn(b, s, h, hd), randn(b, s, kh, hd), randn(b, s, kh, hd)
-    kw = dict(window=pw, softcap=softcap)
+    kw = dict(window=pw, chunked=chunked, softcap=softcap)
     pos = torch.arange(s, device=dev)
     vis = (pos[None, :] <= pos[:, None])
-    if pw is not None:
+    if chunked:
+        vis &= (pos[:, None] // pw) == (pos[None, :] // pw)
+    elif pw is not None:
         vis &= (pos[:, None] - pos[None, :]) < pw
     pairs = int(vis.sum())
-    e = err(fp.flash_prefill(q, k, v, **kw), fp.flash_prefill_plain(
-        q, k, v, **kw))
+
+    def plain_prefill():
+        # row by row past 4352 tokens: the plain version holds the whole
+        # f32 score matrix (12 GB a row of llama4's 8704 x 8704 x 40)
+        if s <= LONG_S:
+            return fp.flash_prefill_plain(q, k, v, **kw)
+        return torch.cat([fp.flash_prefill_plain(q[i:i + 1], k[i:i + 1],
+                                                 v[i:i + 1], **kw)
+                          for i in range(b)])
+
+    e = err(fp.flash_prefill(q, k, v, **kw), plain_prefill())
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     bnd, by = bound_ms(nbytes, 4.0 * b * h * hd * pairs, "bfloat16")
     ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -2582,12 +3030,11 @@ def variant_attention_rows(torch, dev, cfg):
         kernel="flash_prefill", model=cfg.name, dtype="bfloat16",
         case="prefill",
         shape=f"q [{b},{s},{h},{hd}] k,v [{b},{s},{kh},{hd}] bf16 causal, "
-              f"window {pw}, softcap {softcap}",
+              f"{'chunk' if chunked else 'window'} {pw}, softcap {softcap}",
         visible_pairs=pairs, max_abs_err=e,
         ms=cuda_ms(torch, lambda: fp.flash_prefill(q, k, v, **kw), flush),
         host_us=enqueue_us(torch, lambda: fp.flash_prefill(q, k, v, **kw)),
-        plain_ms=cuda_ms(torch, lambda: fp.flash_prefill_plain(
-            q, k, v, **kw), flush, iters=5),
+        plain_ms=cuda_ms(torch, plain_prefill, flush, iters=5),
         bound_ms=bnd, bound_by=by)
     lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         ql, kl, vl, attn_mask=vis, enable_gqa=True), flush)
@@ -2773,6 +3220,12 @@ def main(argv=None) -> int:
     _release(torch)
     log(f"variants phase {time.perf_counter() - t0:.1f}s")
 
+    # ---- 12. dbrx-132b, llama4-maverick: the MoE family -----------------
+    t0 = time.perf_counter()
+    moe = moe_phase(torch, dev)
+    _release(torch)
+    log(f"MoE phase {time.perf_counter() - t0:.1f}s")
+
     # launches over every serve, the main path's and each later one's
     serves = {"dense": serve["launches"],
               "paged_compare_dense": paged["dense"]["launches"],
@@ -2787,7 +3240,7 @@ def main(argv=None) -> int:
         if isinstance(runs, dict) and "dense" in runs:
             for kv, run in runs.items():
                 serves[f"qwen2_{key}_{kv}"] = run["launches"]
-    for arch, rec in variants.items():
+    for arch, rec in {**variants, **moe}.items():
         for key, runs in rec.items():
             if not key.startswith("serve_"):
                 continue
@@ -2812,13 +3265,13 @@ def main(argv=None) -> int:
                     shape=shape, **extra)
 
     def variant_rows(name):
-        """Every row of kernel ``name`` at phase 11's shapes."""
+        """Every row of kernel ``name`` at phase 11's and 12's shapes."""
         out, table = [], {"sgmv_shrink": "kernel_rows",
                           "sgmv_expand": "kernel_rows",
                           "paged_gather_pages": "gather_rows",
                           "flash_decode": "attention_rows",
                           "flash_prefill": "attention_rows"}[name]
-        for rec in variants.values():
+        for rec in (*variants.values(), *moe.values()):
             out += [r for r in rec.get(table, []) if r["kernel"] == name]
         return out
 
@@ -2915,7 +3368,7 @@ def main(argv=None) -> int:
              qwen2_kernel_rows=q_rows, qwen2_gather_rows=q_gather,
              qwen2_attention_rows=q_attention, qwen2=qwen2,
              route_checks=routes, learned_router=learned,
-             variants=variants,
+             variants=variants, moe=moe,
              seconds=time.perf_counter() - t_start), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

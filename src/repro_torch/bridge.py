@@ -40,7 +40,10 @@ def tree_from_numpy(tree: Any, device: Any = "cpu") -> Any:
 
 def params_from_numpy(model: Model, tree: Dict) -> Dict:
     """Load the JAX param tree into ``model`` path for path (shapes are
-    checked against its config). Returns ``model.params``."""
+    checked against its config), each leaf in its own dtype: an MoE
+    slot's ``moe`` subtree crosses as it is, its router [ng, d, E] f32,
+    its experts' ``up``/``gate``/``down`` [ng, E, d, f] / [ng, E, f, d]
+    and a ``shared`` expert's MLP. Returns ``model.params``."""
     return model.load_params(tree_from_numpy(tree, model.device))
 
 

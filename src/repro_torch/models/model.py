@@ -1,4 +1,4 @@
-"""Model API, dense decoder subset (``repro.models.model``).
+"""Model API, dense and MoE decoders (``repro.models.model``).
 
 ``Model`` is an ``nn.Module`` whose ``weights`` child mirrors the JAX
 param tree path for path (``weights.layers.slot0.attn.wq`` is
@@ -37,19 +37,20 @@ def check_supported(cfg: ModelConfig) -> None:
     (sliding-window, chunked-local) attention with RoPE, optional QKV
     bias, QK-norm, attention and final logit softcaps, an int8 KV cache,
     post-norms, scaled embeddings, gated or plain MLPs, tied or untied
-    embeddings; and the early-fusion VLM family (chameleon), whose image
-    tokens share the vocabulary, so it is one token stream."""
+    embeddings; the early-fusion VLM family (chameleon), whose image
+    tokens share the vocabulary, so it is one token stream; and the MoE
+    family (dbrx, llama4: top-k capacity dispatch, a shared expert, MoE
+    on every ``moe_layer_period``-th layer)."""
     a = cfg.attn
     unported = {
-        "family not in ('dense', 'vlm')": cfg.family not in ("dense",
-                                                             "vlm"),
+        "family not in ('dense', 'vlm', 'moe')": cfg.family not in (
+            "dense", "vlm", "moe"),
         "attention kinds other than global/local": any(
             k not in ("global", "local") for k in a.layer_pattern),
         "rope=False": not a.rope,
-        "moe/ssm/encoder/shared_attn": (cfg.moe is not None
-                                        or cfg.ssm is not None
-                                        or cfg.encoder is not None
-                                        or bool(cfg.shared_attn_every)),
+        "ssm/encoder/shared_attn": (cfg.ssm is not None
+                                    or cfg.encoder is not None
+                                    or bool(cfg.shared_attn_every)),
     }
     found = [k for k, v in unported.items() if v]
     if found:

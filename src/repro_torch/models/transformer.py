@@ -1,6 +1,7 @@
-"""Decoder stack, dense subset (``repro.models.transformer``): global
-and local (sliding-window) attention slots, gated or plain MLPs, optional
-post-norms.
+"""Decoder stacks, dense and MoE (``repro.models.transformer``): global
+and local (sliding-window, chunked-local) attention slots, gated or plain
+MLPs or mixture-of-experts blocks (every ``moe_layer_period``-th slot),
+optional post-norms.
 
 Layers are organised into **groups** of ``period`` pattern slots with
 stacked params, as in the reference::
@@ -22,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import LoRAMode, init_lora_pair
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (init_device, linear, mlp, mlp_init,
                                       rmsnorm)
 
@@ -51,6 +53,14 @@ def slot_kind(cfg: ModelConfig, p: int) -> str:
     return cfg.attn.layer_pattern[p % len(cfg.attn.layer_pattern)]
 
 
+def slot_is_moe(cfg: ModelConfig, p: int) -> bool:
+    """Slot p holds an MoE block: the last of every ``moe_layer_period``."""
+    if cfg.moe is None:
+        return False
+    per = cfg.moe.moe_layer_period
+    return p % per == per - 1
+
+
 def cache_len_for(kind: str, cfg: ModelConfig, max_len: int) -> int:
     """Ring length of a slot: local layers keep only their window."""
     if kind == "local":
@@ -78,9 +88,13 @@ def init_slot(generator: Optional[torch.Generator], cfg: ModelConfig, p: int,
         "attn": attn_lib.attention_init(generator, cfg, stack=(ng,),
                                         dtype=dtype),
         "ln2": {"scale": torch.zeros((ng, d), dtype=dtype, device=dev)},
-        "mlp": mlp_init(generator, d, cfg.d_ff, glu=cfg.glu, dtype=dtype,
-                        stack=(ng,)),
     }
+    if slot_is_moe(cfg, p):
+        out["moe"] = moe_lib.moe_init(generator, cfg, stack=(ng,),
+                                      dtype=dtype)
+    else:
+        out["mlp"] = mlp_init(generator, d, cfg.d_ff, glu=cfg.glu,
+                              dtype=dtype, stack=(ng,))
     if cfg.post_norm:  # gemma2: RMSNorm of each block's output
         for name in ("post1", "post2"):
             out[name] = {"scale": torch.zeros((ng, d), dtype=dtype,
@@ -120,8 +134,10 @@ def init_lora_stack(generator: torch.Generator, cfg: ModelConfig, *,
     tree: Dict[str, Any] = {"layers": {}}
     for p in range(stack_period(cfg)):
         mods = tuple(m for m in _ATTN_MODULES if m in targets)
-        mods += tuple(m for m in _MLP_MODULES
-                      if m in targets and cfg.d_ff and (cfg.glu or m != "gate"))
+        # an MoE slot's MLP LoRA lives on its shared expert, if it has one
+        if not slot_is_moe(cfg, p) or cfg.moe.shared_expert:
+            mods += tuple(m for m in _MLP_MODULES if m in targets
+                          and cfg.d_ff and (cfg.glu or m != "gate"))
         tree["layers"][f"slot{p}"] = {
             m: init_lora_pair(generator, *_LORA_DIMS[m](cfg), cfg.lora.rank,
                               stack=(ng, *pool), dtype=dtype)
@@ -167,14 +183,23 @@ def _attn_block_full(slot_p: Dict, lora_p: Optional[Dict], x: torch.Tensor,
     return o
 
 
+def _ffn_block(slot_p: Dict, lora_p: Optional[Dict], h: torch.Tensor,
+               cfg: ModelConfig, lora_mode: LoRAMode):
+    """The slot's MLP or MoE block on the normed ``h`` [B, S, d]. Returns
+    (y, aux losses: empty for an MLP)."""
+    if "moe" in slot_p:
+        return moe_lib.moe_block(slot_p["moe"], h, cfg, lora_p, lora_mode)
+    return mlp(slot_p["mlp"], h, act=cfg.act, glu=cfg.glu, lora=lora_p,
+               lora_mode=lora_mode), {}
+
+
 def _ffn_block_full(slot_p: Dict, lora_p: Optional[Dict], x: torch.Tensor,
-                    cfg: ModelConfig, lora_mode: LoRAMode) -> torch.Tensor:
+                    cfg: ModelConfig, lora_mode: LoRAMode):
     h = rmsnorm(slot_p["ln2"], x, cfg.norm_eps)
-    y = mlp(slot_p["mlp"], h, act=cfg.act, glu=cfg.glu, lora=lora_p,
-            lora_mode=lora_mode)
+    y, aux = _ffn_block(slot_p, lora_p, h, cfg, lora_mode)
     if cfg.post_norm:
         y = rmsnorm(slot_p["post2"], y, cfg.norm_eps)
-    return y
+    return y, aux
 
 
 def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -202,6 +227,9 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
     ``attn_kernel`` routes every layer's attention through the
     ``flash_prefill`` kernel instead of the plain blockwise loops.
+
+    The aux losses are the MoE blocks' load-balance and router z-losses,
+    summed over layers (zero without MoE).
     """
     del seq_mask, lengths  # attention-only stack: see docstring
     if prefix_kv is not None and cache is None:
@@ -211,6 +239,8 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     lora_layers = (lora or {}).get("layers", {})
     fill = cache is not None
     h = x
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"load_balance": zero, "router_z": zero}
     for gi in range(n_groups(cfg)):
         gp = group_view(params["layers"], gi)
         gl = group_view(lora_layers, gi) if lora_layers else {}
@@ -224,9 +254,10 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                                      prefix_kv=gpre.get(f"slot{p}"),
                                      prefix_positions=prefix_positions,
                                      attn_kernel=attn_kernel)
-            h = h + _ffn_block_full(sp, lp, h, cfg, lora_mode)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"load_balance": zero, "router_z": zero}
+            y, slot_aux = _ffn_block_full(sp, lp, h, cfg, lora_mode)
+            h = h + y
+            for name, v in slot_aux.items():
+                aux[name] = aux[name] + v
     if fill:
         return h, aux, cache
     return h, aux
@@ -293,8 +324,7 @@ def decode_stack(params: Dict, x: torch.Tensor, cache: Dict,
             h = h + _attn_decode(sp, lp, h, gc[f"slot{p}"], cfg, kind, pos,
                                  lora_mode, attn_kernel)
             hn = rmsnorm(sp["ln2"], h, cfg.norm_eps)[:, None, :]
-            y = mlp(sp["mlp"], hn, act=cfg.act, glu=cfg.glu, lora=lp,
-                    lora_mode=lora_mode)[:, 0]
+            y = _ffn_block(sp, lp, hn, cfg, lora_mode)[0][:, 0]
             if cfg.post_norm:
                 y = rmsnorm(sp["post2"], y, cfg.norm_eps)
             h = h + y

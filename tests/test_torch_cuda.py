@@ -647,8 +647,9 @@ def test_cuda_flash_prefill_tensor_core_shapes(dev, hd, sq, skv, offset,
 
 # (g, kh, hd): qwen2-0.5b (14 heads over 2, hd 64: a 64-row tile of
 # (position, head) pairs splits a position's 7 heads across CTAs),
-# llama3.2-3b (24 over 8, hd 128), openelm-1.1b (16 over 4, hd 128)
-NEW_GQA = [(7, 2, 64), (3, 8, 128), (4, 4, 128)]
+# llama3.2-3b (24 over 8, hd 128), openelm-1.1b (16 over 4, hd 128),
+# dbrx-132b (48 over 8), llama4-maverick (40 over 8)
+NEW_GQA = [(7, 2, 64), (3, 8, 128), (4, 4, 128), (6, 8, 128), (5, 8, 128)]
 
 
 @pytest.mark.cuda
@@ -740,15 +741,17 @@ def test_cuda_sgmv_rank16_qwen2_shapes(dev, dtype, t, d_in, d_out):
     assert err <= tol * want.float().abs().max().item(), err
 
 
-def _captured_step(dev, policy, kv, step):
-    """Serve a short trace on the reduced qwen2-0.5b (bf16, QKV bias, the
-    SGMV and attention kernels) and capture the engine's first call of
-    ``step``: (engine, step function, args, its output tokens)."""
+def _captured_step(dev, policy, kv, step, arch="qwen2-0.5b", **attn):
+    """Serve a short trace on the reduced ``arch`` (bf16, the SGMV and
+    attention kernels; ``attn`` overrides its AttentionConfig) and capture
+    the engine's first call of ``step``: (step function, its inputs and
+    output tokens)."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
     from repro_torch.serving.workload import WorkloadConfig, generate_trace
-    cfg = dataclasses.replace(reduced_config(get_config("qwen2-0.5b")),
-                              dtype="bfloat16")
+    cfg = reduced_config(get_config(arch))
+    cfg = dataclasses.replace(cfg, dtype="bfloat16", attn=dataclasses.replace(
+        cfg.attn, **attn))
     eng = EdgeLoRAEngine(cfg, EngineConfig(
         n_slots=4, max_ctx=64, prompt_buckets=(16, 32), policy=policy,
         kv_backend=kv, memory_budget=1e12, lora_backend="sgmv"), device=dev)
@@ -1107,3 +1110,171 @@ def test_cuda_variant_kernel_route_matches_plain_route(dev, arch, over):
     for got, want in zip(logits["kernel"], logits["plain"]):
         err = (got - want).abs().max().item()
         assert err <= 1e-4 * want.abs().max().item(), err
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: dbrx-132b (GQA 6), llama4-maverick (GQA 5, chunked-local
+# rings of 8192)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_ring(dev, depths, c):
+    """Ring positions [B, c] of rows written up to ``depths`` (position p
+    at index p % c; -1 where nothing was written) and each row's query
+    position."""
+    depth = torch.tensor(depths, dtype=torch.int32, device=dev)
+    idx = torch.arange(c, dtype=torch.int32, device=dev)
+    newest = (depth[:, None] - 1 - idx) // c * c + idx
+    kv_pos = torch.where(newest >= 0, newest, -1).to(torch.int32)
+    return kv_pos, (depth - 1).clamp_min(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [5, 6])
+def test_cuda_flash_decode_chunked_ring_8192(dev, g):
+    """llama4's local decode layer: chunked-local, window 8192, over an
+    8192-entry ring, bf16, rows past the chunk boundary (their visible
+    keys start at 8192), at it, below it and idle."""
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=dev).manual_seed(15)
+    b, kh, hd, c = 8, 8, 128, 8192
+    kv_pos, q_pos = _chunk_ring(dev, [8704, 8600, 8193, 8192, 4000, 100, 1,
+                                      0], c)
+    q = torch.randn(b, g * kh, hd, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, c, kh, hd, generator=gen, device=dev).bfloat16()
+            for _ in "kv")
+    kw = dict(window=c, chunked=True)
+    da.reset_launches()
+    got = da.flash_decode(q, k, v, kv_pos, q_pos, **kw)
+    want = da.flash_decode_plain(q, k, v, kv_pos, q_pos, **kw)
+    torch.cuda.synchronize()
+    assert da.launches == {"flash_decode": 1}
+    _attn_close(got, want, torch.bfloat16)
+    # the chunk is real: the plain sliding window of 8192 differs on the
+    # rows past the boundary
+    slide = da.flash_decode_plain(q, k, v, kv_pos, q_pos, window=c)
+    assert (slide[:3].float() - want[:3].float()).abs().max() > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [5, 6])
+def test_cuda_flash_prefill_chunked_past_8192(dev, g):
+    """A prompt of 8704 tokens, chunked-local at 8192, bf16 (2 kv heads
+    here to keep the plain version's score matrix small): the last 512
+    queries see only their own chunk."""
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator(device=dev).manual_seed(16)
+    s, kh, hd = 8704, 2, 128
+    q = torch.randn(1, s, g * kh, hd, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(1, s, kh, hd, generator=gen, device=dev).bfloat16()
+            for _ in "kv")
+    kw = dict(window=8192, chunked=True)
+    fp.reset_launches()
+    got = fp.flash_prefill(q, k, v, **kw)
+    want = fp.flash_prefill_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fp.launches == {"flash_prefill": 1}
+    _attn_close(got, want, torch.bfloat16)
+
+
+# (arch, attention overrides): llama4 at a chunk of 16, so the reduced
+# model's prompts and decode steps cross it
+MOE_ARCHS = [("dbrx-132b", {}),
+             ("llama4-maverick-400b-a17b", dict(sliding_window=16))]
+
+
+def _moe_problem(arch, over, b, s, **moe_over):
+    """A reduced MoE config in f32, one layer's MoE params (and a batched
+    LoRA on a shared expert) and x [b, s, d], drawn on the CPU."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import moe
+    cfg = reduced_config(get_config(arch))
+    cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, **moe_over), attn=dataclasses.replace(cfg.attn, **over))
+    gen = torch.Generator().manual_seed(17)
+    params = moe.moe_init(gen, cfg, dtype=torch.float32)
+    for leaf in (params["experts"], params.get("shared", {})):
+        for name, w in leaf.items():
+            leaf[name] = torch.randn(w.shape, generator=gen) / w.shape[-2] ** .5
+    params["router"] = torch.randn(params["router"].shape, generator=gen)
+    lora = None
+    if "shared" in params:
+        d, f = cfg.d_model, cfg.d_ff
+        lora = {m: {"A": torch.randn(4, 4, di, generator=gen) / 2,
+                    "B": 0.05 * torch.randn(4, do, 4, generator=gen)}
+                for m, (di, do) in (("up", (d, f)), ("gate", (d, f)),
+                                    ("down", (f, d)))}
+    x = torch.randn(b, s, cfg.d_model, generator=gen)
+    ids = torch.randint(0, 4, (b,), generator=gen, dtype=torch.int32)
+    return cfg, params, lora, x, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,cf", [(3, 16, 1.25), (2, 2100, 0.5)])
+@pytest.mark.parametrize("arch,over", MOE_ARCHS)
+def test_cuda_moe_block_matches_cpu(dev, arch, over, b, s, cf):
+    """``moe_block`` on the card against itself on the CPU, f32: the same
+    experts chosen and kept (lossless at [3, 16]; at [2, 2100] with cf 0.5
+    choices drop), outputs within 1e-5 of max|y|, aux within 1e-5."""
+    from repro_torch.core.lora import LoRAMode
+    from repro_torch.models import moe
+    cfg, params, lora, x, ids = _moe_problem(arch, over, b, s,
+                                             capacity_factor=cf)
+
+    def to(tree, where):
+        if isinstance(tree, dict):
+            return {k: to(v, where) for k, v in tree.items()}
+        return None if tree is None else tree.to(where)
+
+    out = {}
+    for where in ("cpu", dev):
+        p, lo = to(params, where), to(lora, where)
+        xw = x.to(where)
+        y, aux = moe.moe_block(p, xw, cfg, lo,
+                               LoRAMode("batched", ids.to(where), 2.0,
+                                        "einsum"))
+        _, eids, _ = moe.route(p, xw.reshape(b * s, -1), cfg.moe)
+        pos = moe.queue_positions(eids.reshape(-1), cfg.moe.n_experts)
+        out[str(where)] = (y.cpu(), {k: float(v) for k, v in aux.items()},
+                           eids.cpu(), pos.cpu())
+    (yc, ac, ec, pc), (yg, ag, eg, pg) = out["cpu"], out[str(dev)]
+    assert torch.equal(ec, eg) and torch.equal(pc, pg)
+    cap = moe.capacity(b * s, cfg.moe)
+    assert bool((pc < cap).all()) == (cf > 1)
+    err = (yg - yc).abs().max().item()
+    assert err <= 1e-5 * yc.abs().max().item(), err
+    for k in ac:
+        assert abs(ag[k] - ac[k]) <= 1e-5 * abs(ac[k]), (k, ag[k], ac[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,step", [
+    ("dense", "_prefill"), ("dense", "_decode"), ("paged", "_decode_paged"),
+])
+@pytest.mark.parametrize("arch,over", MOE_ARCHS)
+def test_cuda_moe_engine_steps_make_no_host_sync(dev, arch, over, kv, step):
+    """Whole engine steps of the reduced MoE models (the dispatch's sort,
+    cumsum, scatter and gather; llama4's chunked-local rings and shared
+    expert) under ``torch.cuda.set_sync_debug_mode("error")``: the same
+    tokens as the captured call, one attention launch per layer, each
+    SGMV kernel once per LoRA module (q, k, v, o) and layer."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import paged_gather as pg
+    fn, seen = _captured_step(dev, "edgelora", kv, step, arch, **over)
+    for mod in (sgmv, da, fp, pg):
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tokens, _ = fn(*seen["args"], **seen["kw"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(tokens, seen["tokens"])
+    n = 4 if arch.startswith("llama4") else 2      # reduced depths
+    assert sgmv.launches["sgmv_shrink"] == 4 * n
+    assert fp.launches["flash_prefill"] + da.launches["flash_decode"] == n
+    pages = {"dense": 0, "paged": 2 if arch.startswith("dbrx") else 8}
+    assert pg.launches["paged_gather_pages"] == (
+        pages[kv] if "decode" in step else 0)

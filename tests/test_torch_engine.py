@@ -36,7 +36,7 @@ from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.serving import engine as jax_engine  # noqa: E402
 from repro.serving import workload as jax_workload  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import (EncoderConfig, MoEConfig,  # noqa: E402
+from repro_torch.configs import (EncoderConfig, SSMConfig,  # noqa: E402
                                  get_config, reduced_config)
 from repro_torch.serving import workload  # noqa: E402
 from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig  # noqa: E402
@@ -194,14 +194,15 @@ def _unported_cfg(feature):
         return dataclasses.replace(tcfg, encoder=EncoderConfig(n_layers=2))
     if feature == "shared_attn":   # zamba2's weight-tied block
         return dataclasses.replace(tcfg, shared_attn_every=2)
-    return dataclasses.replace(tcfg, moe=MoEConfig(n_experts=4, top_k=2))
+    # a Mamba-2 block in a decoder config (the hybrid families' mixer)
+    return dataclasses.replace(tcfg, ssm=SSMConfig(d_state=16))
 
 
 @pytest.mark.parametrize("change,msg", [
     ("mamba2", "arch 'mamba2-130m'"),
     ("encoder", "encoder"),
     ("shared_attn", "shared_attn"),
-    ("moe", "moe"),
+    ("ssm", "ssm"),
 ])
 def test_unported_features_raise(change, msg):
     with pytest.raises(NotImplementedError, match=msg):
