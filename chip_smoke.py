@@ -136,19 +136,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     ``flash_prefill`` at [2, 4352] past the window (chameleon: [8, 64]),
     the page gather at gemma2's paged step (bf16 and int8 K pages, bf16
     scale pages).
-    gemma2-9b (42 layers, d 3584, 16/8 heads, hd 256, d_ff 14336, vocab
+    gemma2-9b (full width, 22 of its 42 layers, which keeps the run
+    inside its time: d 3584, 16/8 heads, hd 256, d_ff 14336, vocab
     256000, tied, local/global slots, window 4096, softcaps 50/30,
     post-norms, scaled embeddings; LoRA rank 16 on 7 modules, a pool of
     8): a route check (2 rows of 4352 and 4200 tokens, 4 decode steps on
     the wrapped rings; the kernel route against plain attention and
-    einsum LoRA within ``ROUTE_TOL``, 42 ``flash_prefill`` launches a
-    prefill and 42 ``flash_decode`` a decode step, 294 of each SGMV
+    einsum LoRA within ``ROUTE_TOL``, 22 ``flash_prefill`` launches a
+    prefill and 22 ``flash_decode`` a decode step, 154 of each SGMV
     kernel a step), the same prefill and one decode step with an int8
     cache against plain attention over the dequantized ring; dense vs
     paged ``edgelora`` serves of 8 requests (3 prompts of 4100–4400
     tokens, ``max_ctx`` 4608), bf16 and int8, under one fake timer: equal
     streams and summaries, 4 page-gather launches per paged decode step
-    (8 with the scales), 294 of each SGMV kernel per unmerged step call;
+    (8 with the scales), 154 of each SGMV kernel per unmerged step call;
     ``prefix_cache`` and ``prefill_chunk`` refused with the reference's
     ``ValueError``. starcoder2-7b (32 layers, d 4608, 36/4 heads, d_ff
     18432, vocab 49152, QKV bias, all-local window 4096, non-GLU GELU,
@@ -193,6 +194,38 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     call of every serve counted: 32 (dbrx) and 16 (llama4) launches of
     each SGMV kernel an unmerged step, one attention launch a layer, the
     gathers of a paged decode step (2 and 8).
+
+13. The SSM family and qwen1.5-110b at full width (after phase 12),
+    bf16. Each model's kernels at its shapes, as in phases 11-12: SGMV at
+    its decode rows and its route check's prefill (8192 or 4096 rows);
+    for zamba2 ``flash_decode`` (q [8, 32, 80] over a 4096 ring) and
+    ``flash_prefill`` ([2, 4096, 32/32, 80]) at head dim 80 and the page
+    gather of its shared ring; for qwen1.5 the same at [2, 2048] and hd
+    128. One ``ssm_block_full`` at [2, 4096] and one ``ssm_block_decode``
+    at 8 rows (plain PyTorch, as the reference computes the SSD) timed
+    beside their bound. mamba2-130m (all 24 layers: d 768, 24 SSD heads
+    of 64, d_state 128, tied; LoRA rank 16 on in_proj and out_proj, a
+    pool of 16) and zamba2-2.7b (all 54 layers and 9 shared-block
+    applications: d 2560, 32/32 heads of hd 80, an MLP of 10240 on every
+    Mamba slot and in the shared block, d_state 64, 80 SSD heads; LoRA on
+    in_proj, out_proj and the shared q, k, v, o): a route check at
+    [2, 4096] with ragged lengths and 4 decode steps, the kernel route
+    against plain attention and einsum LoRA, counted in bf16 (there the
+    routes differ by ~10 % of max|logit|: rounding amplified through the
+    gated SSD blocks) and held within ``F32_ROUTE_TOL`` in f32 (mamba2 at
+    full depth, zamba2 at 12 of 54 layers); dense
+    vs paged ``edgelora`` serves of 8 requests with equal streams and
+    summaries (mamba2's paged serve is the pool's bookkeeping only),
+    ``llamacpp`` (merged only) and ``dlora`` serves; the prefix cache and
+    chunked prefill refused with the reference's ``ValueError``; the
+    state carry in f32 (at the f32 route check's depths): a prefill of S tokens then a decode step equals the last position of
+    a prefill of S + 1 within 1e-4 of max|logit|. qwen1.5-110b (full
+    width, 16 of its 80 layers: d 8192, 64/8 heads, d_ff 49152, vocab
+    152064, QKV bias, untied): the route check at [2, 2048] held within
+    ``ROUTE_TOL`` in bf16, the same serves. Every step call counted: 48 (mamba2), 144 (zamba2: 108 +
+    36) and 112 (qwen1.5) launches of each SGMV kernel an unmerged step;
+    0, 9 and 16 attention launches a step; 0, 2 and 2 gathers a paged
+    decode step.
 
 Each serve's kernel launch counts are zeroed just before it and read just
 after; every kernel its path runs must have launched.
@@ -395,12 +428,34 @@ def kernel_phase(torch, dev, spec):
         xbuf[plan.padded_pos.long()] = x[plan.perm]
         return x, a, b, slots, blk_t, plan, xbuf
 
-    def err(got, want, dtype):
+    def err(got, want, dtype, exact=None):
+        """max|got - want|, held within TOL[dtype] of max|want|; with
+        ``exact`` (the f64 product), a longer f32 sum may also pass by
+        lying no further from it than twice the plain version does."""
         d = (got.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
+        if d > TOL[dtype] * scale and exact is not None:
+            dk = (got.double() - exact).abs().max().item()
+            dp = (want.double() - exact).abs().max().item()
+            log(f"  f32 sum over d={got.shape} vs the f64 product: kernel "
+                f"{dk:.3e}, plain {dp:.3e} (max|ref| {scale:.3e})")
+            check(dk <= 2 * dp, f"max abs err {d:.3e} > {TOL[dtype]:.1e} x "
+                  f"{scale:.3e}, and {dk:.3e} from the f64 product, more "
+                  f"than twice the plain version's {dp:.3e}")
+            return d
         check(d <= TOL[dtype] * scale,
               f"max abs err {d:.3e} > {TOL[dtype]:.1e} x {scale:.3e}")
         return d
+
+    def shrink_f64(xbuf, a, bs, blk_t, nu, dtype):
+        """The shrink's exact product: x and the A tiles rounded to the
+        activation type as the kernel reads them, summed in f64."""
+        nb = bs.numel()
+        out = torch.einsum("ntd,nrd->ntr",
+                           xbuf.double().reshape(nb, blk_t, -1),
+                           a[bs.long()].to(dtype).double())
+        live = torch.arange(nb, device=out.device) < nu.to(out.device)
+        return (out * live[:, None, None]).reshape(nb * blk_t, -1)
 
     for dname in spec.get("dtypes", ("bfloat16", "float32")):
         dtype = getattr(torch, dname)
@@ -413,7 +468,8 @@ def kernel_phase(torch, dev, spec):
                 want = sgmv.shrink_plain(xbuf, a, bs, blk_t=blk_t,
                                          n_used=nu)
                 torch.cuda.synchronize()
-                e = err(got, want, "float32")
+                e = err(got, want, "float32",
+                        exact=shrink_f64(xbuf, a, bs, blk_t, nu, dtype))
                 nb = bs.numel()
                 xb = xbuf.reshape(nb, blk_t, d_in)
                 a_t = a[bs.long()].to(dtype).transpose(1, 2).contiguous()
@@ -742,13 +798,14 @@ def attention_phase(torch, dev, spec, full=True):
     return rows
 
 
-def compare_logits(torch, where, kern, other, live, tol):
+def compare_logits(torch, where, kern, other, live, tol, hold=True):
     """Logits of the kernel route against another route's: within
     ``tol`` of max|logit|, and top-1 equal on every live row where the
     other route's top-2 margin exceeds that (there a flip is a fault,
     not a tie broken the other way by rounding; bf16 logits tie exactly
     at times). Returns the figures, agreement over all live rows
-    beside."""
+    beside. Without ``hold`` the figures are only counted (the logits
+    must still be finite)."""
     check(bool(torch.isfinite(kern).all()), f"{where}: non-finite logits")
     d = (kern - other).abs().max().item()
     scale = other.abs().max().item()
@@ -761,6 +818,8 @@ def compare_logits(torch, where, kern, other, live, tol):
                live_rows=int(live.sum()), clear_rows=int(clear.sum()),
                top2_margins_live=margin[live].tolist())
     log(f"{where}: " + json.dumps(res))
+    if not hold:
+        return res
     check(d <= tol * scale, f"{where}: logits differ by {d:.3e} > {tol} x "
           f"{scale:.3e}")
     check(bool(agree[clear].all()), f"{where}: top-1 differs on a live row "
@@ -1600,7 +1659,14 @@ def prepare_weights(torch, cfg, params, gen) -> None:
     which through the tied head gives logits of ~0.1 and top-2 ties
     everywhere), or to 1/sqrt(d_model) where the model scales its
     embedding up by sqrt(d_model) (gemma2: its tied logits then stay
-    inside the final softcap's range instead of saturating it)."""
+    inside the final softcap's range instead of saturating it).
+    A Mamba-2 slot's ``in_proj``, ``out_proj`` and ``conv_w`` stacks are
+    rescaled the same way (the conv's fan-in is its 4 taps); its gate
+    norm is drawn as a norm scale; its f32 ``dt_bias``, ``A_log`` and
+    ``D`` (2-D) and ``conv_b`` keep the reference's init. zamba2's
+    ``shared_attn`` block is unstacked, so the reference's init
+    (stddev 1/sqrt(shape[0]) = 1/sqrt(d_in)) is already at fan-in scale
+    and it is left as drawn."""
     with torch.no_grad():
         for slot in params["layers"].values():
             for mod_name, module in slot.items():
@@ -1622,6 +1688,17 @@ def prepare_weights(torch, cfg, params, gen) -> None:
                 cfg.d_model ** 0.5 if cfg.scale_embeddings else 1.0))
 
 
+def _draw_b(tree, gen) -> None:
+    """In place: every LoRA pair's B ~ N(0, B_STD^2), the stack's slots
+    and zamba2's shared block alike (left at zero, the shared block's
+    LoRA would check nothing)."""
+    if "B" in tree:
+        tree["B"].normal_(0.0, B_STD, generator=gen)
+        return
+    for sub in tree.values():
+        _draw_b(sub, gen)
+
+
 def make_adapter_source(torch, dev, cfg):
     """Adapters as deterministic functions of their id: A ~ N(0, 1/r) as
     the reference draws it, B ~ N(0, B_STD^2) instead of zeros."""
@@ -1630,9 +1707,7 @@ def make_adapter_source(torch, dev, cfg):
     def source(aid: int):
         gen = torch.Generator(device=dev).manual_seed(10_000 + aid)
         tree = init_lora_stack(gen, cfg)
-        for mods in tree["layers"].values():
-            for pair in mods.values():
-                pair["B"].normal_(0.0, B_STD, generator=gen)
+        _draw_b(tree, gen)
         return tree
     return source
 
@@ -1660,19 +1735,29 @@ def _count_steps(torch, engine):
     return calls
 
 
+def _step_counts(spec):
+    """(LoRA calls, attention calls) of one step of ``spec``'s model: by
+    default one per LoRA module and layer and one per layer; an SSM or
+    hybrid spec states its own (``lora_calls``, ``attn_calls``)."""
+    layers = spec["layers"]
+    return (spec.get("lora_calls", layers * len(spec["modules"])),
+            spec.get("attn_calls", layers))
+
+
 def _check_step_launches(where, calls, spec, paged):
-    """Per step call: each SGMV kernel once per LoRA module and layer on
-    an unmerged step and never on a merged one; the step's attention
-    kernel once per layer; the page gather once per arena leaf (k, v and,
-    in an int8 cache, their scales; ``spec['gathers']``, default 2) of
-    each attention slot per paged decode step."""
-    layers, lora = spec["layers"], spec["layers"] * len(spec["modules"])
+    """Per step call: each SGMV kernel once per LoRA call (by default one
+    per LoRA module and layer; ``_step_counts``) on an unmerged step and
+    never on a merged one; the step's attention kernel once per attention
+    call (by default one per layer); the page gather once per arena leaf
+    (k, v and, in an int8 cache, their scales; ``spec['gathers']``,
+    default 2) of each attention slot per paged decode step."""
+    lora, attn = _step_counts(spec)
     for name, _, got in calls:
         phase, merged = STEP_KINDS[name]
         want = {"sgmv_shrink": 0 if merged else lora,
                 "sgmv_expand": 0 if merged else lora,
-                "flash_prefill": layers if phase == "prefill" else 0,
-                "flash_decode": layers if phase == "decode" else 0,
+                "flash_prefill": attn if phase == "prefill" else 0,
+                "flash_decode": attn if phase == "decode" else 0,
                 "paged_gather_pages": (spec.get("gathers", 2)
                                        if phase == "decode" and paged
                                        else 0)}
@@ -2033,6 +2118,10 @@ LONG_CTX = 4608          # the long serves' max_ctx: 4400 + 48 tokens fit
 LONG_S = 4352            # route check prompts, past the 4096 window
 LONG_LENGTHS = (4352, 4200)
 LONG_DECODE_STEPS = 4
+# gemma2-9b at 22 of its 42 layers (11 local/global pairs): its four
+# host-bound long serves took ~80 s of the run at full depth, and phase 13
+# needed the time
+GEMMA2_LAYERS = 22
 # chameleon-34b's 68 GB of bf16 weights leave no room for its pool, caches
 # and the plain route beside them on one 80 GB card: its full width at
 # this depth
@@ -2045,10 +2134,9 @@ def variant_spec(cfg, **kw):
     and the page-gather launches of a paged decode step (one per arena
     leaf of each attention slot: k and v, and their scales in an int8
     cache)."""
-    d, qs, kvs, f = cfg.d_model, cfg.q_size, cfg.kv_size, cfg.d_ff
-    dims = {"q": (d, qs), "k": (d, kvs), "v": (d, kvs), "o": (qs, d),
-            "up": (d, f), "gate": (d, f), "down": (f, d)}
-    modules = {m: dims[m] for m in cfg.lora.target_modules
+    from repro_torch.models.transformer import _LORA_DIMS, n_groups
+
+    modules = {m: _LORA_DIMS[m](cfg) for m in cfg.lora.target_modules
                if cfg.glu or m != "gate"}
     leaves = 4 if cfg.attn.kv_cache_quant else 2
     spec = dict(model=cfg.name, r_pool=cfg.lora.max_resident,
@@ -2060,6 +2148,15 @@ def variant_spec(cfg, **kw):
                 layers=cfg.n_layers, dtypes=("bfloat16",),
                 groups=cfg.n_layers // len(cfg.attn.layer_pattern),
                 gathers=leaves * len(cfg.attn.layer_pattern))
+    if cfg.ssm is not None:
+        # Mamba-2 slots: in_proj and out_proj a layer; zamba2's shared
+        # block after each group: its q, k, v, o LoRA, one attention call
+        # and one shared ring (k, v pages) stacked over the groups
+        ssm_mods = [m for m in modules if m in ("in_proj", "out_proj")]
+        ng = n_groups(cfg) if cfg.shared_attn_every else 0
+        spec.update(lora_calls=cfg.n_layers * len(ssm_mods)
+                    + ng * (len(modules) - len(ssm_mods)),
+                    attn_calls=ng, groups=ng, gathers=leaves if ng else 0)
     spec.update(kw)
     return spec
 
@@ -2077,10 +2174,14 @@ def _variant_params(torch, dev, cfg, seed):
     return params
 
 
-def _cast_tree(torch, tree, dtype):
+# leaves the reference keeps in f32 whatever the model dtype
+F32_LEAVES = ("dt_bias", "A_log", "D", "router")
+
+
+def _cast_tree(torch, tree, dtype, name=""):
     if isinstance(tree, dict):
-        return {k: _cast_tree(torch, v, dtype) for k, v in tree.items()}
-    return tree.to(dtype)
+        return {k: _cast_tree(torch, v, dtype, k) for k, v in tree.items()}
+    return tree if name in F32_LEAVES else tree.to(dtype)
 
 
 def _clone_cache(cache):
@@ -2089,7 +2190,8 @@ def _clone_cache(cache):
 
 
 def route_check(torch, dev, cfg, params, spec, routes, *, lengths, s,
-                decode_steps, where, idle_row=False, on_route=None):
+                decode_steps, where, idle_row=False, on_route=None,
+                tol=None):
     """One bf16 prefill of ``len(lengths)`` right-padded rows of ``s``
     tokens (per-row adapters from an 8-slot pool, B nonzero) and
     ``decode_steps`` decode steps on each route of ``routes`` (name ->
@@ -2102,7 +2204,9 @@ def route_check(torch, dev, cfg, params, spec, routes, *, lengths, s,
     launches each attention kernel once per layer if it runs them, each
     SGMV kernel once per LoRA module and layer per step if it runs them,
     and nothing else. ``on_route(name)`` is called before each route's
-    step."""
+    step. ``tol``: a tolerance for every route in place of ``ROUTE_TOL``
+    (held), or "count" to record the logits' figures without holding
+    them (launches are held either way)."""
     from repro_torch.core.lora import LoRAMode
     from repro_torch.models import build_model
 
@@ -2112,15 +2216,13 @@ def route_check(torch, dev, cfg, params, spec, routes, *, lengths, s,
         models[on] = build_model(cfg, dev, attn_kernel=on)
         models[on].load_params(params)
     pool = models[True].init_lora(gen, n_slots=N_SLOTS)
-    for mods in pool["layers"].values():
-        for pair in mods.values():
-            pair["B"].normal_(0.0, B_STD, generator=gen)
+    _draw_b(pool, gen)
     b = len(lengths)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                            device=dev, dtype=torch.int32)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     sids = torch.arange(b, dtype=torch.int32, device=dev) % N_SLOTS
-    layers, n_lora = spec["layers"], spec["layers"] * len(spec["modules"])
+    n_lora, layers = _step_counts(spec)
     out, launches, cache0 = {}, {}, None
 
     def run(route, fn):
@@ -2182,7 +2284,8 @@ def route_check(torch, dev, cfg, params, spec, routes, *, lengths, s,
             res[f"{step}_vs_{route}"] = compare_logits(
                 torch, f"{where} {step}, kernels vs {route}",
                 out[(step, "kernels")], out[(step, route)], live,
-                ROUTE_TOL[route])
+                ROUTE_TOL[route] if tol in (None, "count") else tol,
+                hold=tol != "count")
     del models, pool, cache0, out
     _release(torch)
     return res
@@ -2301,6 +2404,8 @@ def variants_phase(torch, dev):
           and cfg.scale_embeddings and cfg.lora.rank == 16
           and len(cfg.lora.target_modules) == 7,
           "not the full gemma2-9b config")
+    cfg = dataclasses.replace(cfg, n_layers=GEMMA2_LAYERS)
+    log(f"gemma2-9b: full width, {GEMMA2_LAYERS} of its 42 layers")
     spec = variant_spec(cfg)
     qcfg = dataclasses.replace(cfg, attn=dataclasses.replace(
         cfg.attn, kv_cache_quant=True))
@@ -2515,8 +2620,8 @@ ROUTE_FLIP_MARGIN = 5e-2
 def _moe_params(torch, dev, cfg, seed):
     """``Model.init``'s distributions for ``cfg`` drawn leaf by leaf, a
     stacked leaf one group at a time in f32 (a dbrx expert leaf drawn
-    whole would take 34 GB of f32 beside its bf16 copy), then
-    ``prepare_weights``. The router stays f32."""
+    whole would take 34 GB of f32 beside its bf16 copy; qwen1.5-110b's
+    MLP leaves 26 GB), then ``prepare_weights``. The router stays f32."""
     import math
 
     from repro_torch.models import build_model
@@ -2541,10 +2646,11 @@ def _moe_params(torch, dev, cfg, seed):
     params = draw(build_model(cfg, dev)._param_tree(None), "")
     prepare_weights(torch, cfg, params, gen)
     n = sum(p.numel() for p in _leaves(params))
+    experts = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}"
+               if cfg.moe is not None else "")
     log(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, {cfg.moe.n_experts} experts top-"
-        f"{cfg.moe.top_k}: {n / 1e9:.2f}B params; adapters of "
+        f"{cfg.vocab_size}{experts}: {n / 1e9:.2f}B params; adapters of "
         f"{cfg.lora_adapter_bytes() / 1e6:.1f} MB")
     return params
 
@@ -3048,6 +3154,390 @@ def variant_attention_rows(torch, dev, cfg, ctx=LONG_CTX,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the SSM family (mamba2-130m, zamba2-2.7b) and qwen1.5-110b
+# ---------------------------------------------------------------------------
+
+# route check prompts of the SSM models: two chunked-SSD chunks short of
+# 16, ragged (dt = 0 on the shorter row's padding)
+SSM_S, SSM_LENGTHS = 4096, (4096, 3900)
+SSM_DECODE_STEPS = 4
+# zamba2's decode kernel rows: ring depths of 8 rows over a 4096 ring
+SSM_DEPTHS = (4096, 4000, 3000, 2048, 1000, 200, 1, 0)
+# qwen1.5-110b's 220 GB of bf16 weights: 16 of its 80 layers (2.7 GB a
+# layer, ~49 GB with the untied embedding and head)
+QWEN15_LAYERS = 16
+QWEN15_S, QWEN15_LENGTHS = 2048, (2048, 1900)
+QWEN15_DEPTHS = (2048, 2000, 1900, 1024, 500, 100, 1, 0)
+# the f32 state carry: zamba2 at 12 of its 54 layers (two groups, two
+# shared-block applications); mamba2 at full depth
+ZAMBA2_CARRY_LAYERS = 12
+# a prefill of S tokens + a decode step on token S against the last
+# position of a prefill of S + 1, in f32: prompts inside the first SSD
+# chunk and past it (chunk 256), at least d_conv - 1 = 3 tokens long
+CARRY_S = (5, 300)
+CARRY_TOL = 1e-4
+# the SSM models' kernel route against the plain one in f32 (held: every
+# op of both routes in f32, so what is left is accumulation order); in
+# bf16 the two differ by 7-11 % of max|logit| on a random mamba2 (rounding
+# amplified through 24 gated SSD blocks; 0 in f32 on the CPU, where both
+# routes run the same plain code), so the bf16 check is counted
+F32_ROUTE_TOL = 1e-3
+
+
+def ssd_rows(torch, dev, cfg, params):
+    """One ``ssm_block_full`` at [2, SSM_S] (``SSM_LENGTHS``, with
+    ``seq_mask``, ``lengths`` and the returned state) and one
+    ``ssm_block_decode`` at ``N_SLOTS`` rows, of ``cfg``'s first Mamba-2
+    slot in bf16 without LoRA, timed with CUDA events beside their
+    bound. Not kernels: plain PyTorch, as the reference computes the SSD
+    outside any Pallas call. The bound: the weights, x, the output and
+    the state moved once against the larger of that over the HBM rate
+    and the GEMMs (bf16) plus the SSD's f32 einsums over their peaks."""
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import group_view
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    sp = group_view(params["layers"], 0)["slot0"]["ssm"]
+    s, d, di, h, g, n, p = ssm._dims(cfg)
+    in_dim, conv_ch = 2 * di + 2 * g * n + h, di + 2 * g * n
+    w_bytes = (2 * (d * in_dim + di * d + s.d_conv * conv_ch + conv_ch + di)
+               + 4 * 3 * h)
+    bf = torch.bfloat16
+
+    def bound(nbytes, gemm, f32):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 1e3 * (gemm / PEAK_FLOPS["bfloat16"]
+                       + f32 / PEAK_FLOPS["float32"])
+        return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+                else "operations")
+
+    b, sl = len(SSM_LENGTHS), SSM_S
+    x = torch.randn(b, sl, d, generator=gen, device=dev).to(bf)
+    lens = torch.tensor(SSM_LENGTHS, dtype=torch.int32, device=dev)
+    mask = torch.arange(sl, device=dev)[None] < lens[:, None]
+
+    def full():
+        return ssm.ssm_block_full(sp, x, cfg, return_state=True,
+                                  seq_mask=mask, lengths=lens)
+
+    with torch.no_grad():
+        got = full()
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t.float()).all()) for t in got),
+              f"{cfg.name}: ssm_block_full not finite")
+        del got
+        chunk = min(s.chunk_size, sl)
+        nc, t = -(-sl // chunk), b * sl
+        gemm = 2.0 * t * (d * in_dim + di * d)
+        # intra-chunk C.B^T and its product with x, the chunk states and
+        # the entering states' contribution
+        f32 = (2.0 * b * nc * h * chunk * chunk * (n + p)
+               + 4.0 * t * h * p * n)
+        nbytes = (w_bytes + 2 * t * d * 2 + b * h * p * n * 4
+                  + b * (s.d_conv - 1) * conv_ch * 2)
+        bnd, by = bound(nbytes, gemm, f32)
+        rows = [dict(
+            function="ssm_block_full", model=cfg.name,
+            shape=f"x [{b},{sl},{d}] bf16, lengths {list(SSM_LENGTHS)}, "
+                  f"chunk {chunk}, {h} heads of {p}, d_state {n}, no LoRA",
+            ms=cuda_ms(torch, full, flush, iters=5, warm=1),
+            bound_ms=bnd, bound_by=by, gemm_flops=gemm, ssd_f32_flops=f32,
+            bytes=nbytes)]
+        cache = ssm.init_ssm_cache(N_SLOTS, cfg, bf, device=dev)
+        cache["state"].normal_(generator=gen)
+        cache["conv"].normal_(generator=gen)
+        xd = torch.randn(N_SLOTS, d, generator=gen, device=dev).to(bf)
+
+        def dec():
+            return ssm.ssm_block_decode(sp, xd, cache, cfg)
+
+        y, new = dec()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y.float()).all())
+              and bool(torch.isfinite(new["state"]).all()),
+              f"{cfg.name}: ssm_block_decode not finite")
+        nbytes = (w_bytes + 2 * N_SLOTS * d * 2 + 2 * N_SLOTS * h * p * n * 4
+                  + 2 * N_SLOTS * (s.d_conv - 1) * conv_ch * 2)
+        bnd, by = bound(nbytes, 2.0 * N_SLOTS * (d * in_dim + di * d),
+                        6.0 * N_SLOTS * h * p * n)
+        rows.append(dict(
+            function="ssm_block_decode", model=cfg.name,
+            shape=f"x [{N_SLOTS},{d}] bf16, state [{N_SLOTS},{h},{p},{n}] "
+                  "f32, no LoRA",
+            ms=cuda_ms(torch, dec, flush), host_us=enqueue_us(torch, dec),
+            bound_ms=bnd, bound_by=by, bytes=nbytes))
+    for r in rows:
+        log(f"{r['function']} " + json.dumps(r))
+    del x, cache, xd
+    _release(torch)
+    return rows
+
+
+def f32_checks(torch, dev, full, n_layers, seed, where):
+    """``full`` at ``n_layers`` in f32: the route check at [2, SSM_S]
+    (the kernel route against plain attention and einsum LoRA, held
+    within ``F32_ROUTE_TOL``), then the state carry on the kernel route
+    (``flash_prefill``/``flash_decode`` in f32, SGMV): a prefill of S
+    tokens (2 rows, mixed adapters, B nonzero) then a decode step on
+    token S gives the logits of the last position of a prefill of S + 1
+    tokens within ``CARRY_TOL`` of max|logit|, for each S of
+    ``CARRY_S``: the chunked dual form and the recurrence agree on the
+    card, the conv ring and the shared block's ring carried."""
+    import dataclasses
+
+    from repro_torch.core.lora import LoRAMode
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(full, n_layers=n_layers, dtype="float32")
+    params = _variant_params(torch, dev, cfg, seed)
+    res = dict(layers=n_layers)
+    res["route_check"] = route_check(
+        torch, dev, cfg, params, variant_spec(cfg),
+        {"kernels": ROUTES["kernels"], "plain": ROUTES["plain"]},
+        lengths=SSM_LENGTHS, s=SSM_S, decode_steps=SSM_DECODE_STEPS,
+        where=f"{where} f32", tol=F32_ROUTE_TOL)
+    model = build_model(cfg, dev, attn_kernel=True)
+    model.load_params(params)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool = model.init_lora(gen, n_slots=N_SLOTS)
+    _draw_b(pool, gen)
+    b = 2
+    mode = LoRAMode("batched", torch.tensor([3, 5], dtype=torch.int32,
+                                            device=dev),
+                    cfg.lora.scale, "sgmv")
+    _reset_counts()
+    for s in CARRY_S:
+        tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                               device=dev, dtype=torch.int32)
+        pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            _, cache = model.prefill(params, {"tokens": tokens[:, :s]},
+                                     model.init_cache(b, s + 1), pool, mode)
+            got, _ = model.decode_step(params, tokens[:, s], cache, pos,
+                                       pool, mode)
+            want, _ = model.prefill(params, {"tokens": tokens},
+                                    model.init_cache(b, s + 1), pool, mode)
+        torch.cuda.synchronize()
+        d = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        res[f"S{s}"] = dict(max_abs=d, max_logit=scale, tol=CARRY_TOL,
+                            top1_equal=bool((got.argmax(-1)
+                                             == want.argmax(-1)).all()))
+        log(f"{where} f32 state carry S={s}: " + json.dumps(res[f"S{s}"]))
+        check(bool(torch.isfinite(got).all()) and d <= CARRY_TOL * scale,
+              f"{where}: prefill {s} + decode differs from prefill {s + 1}"
+              f" by {d:.3e} > {CARRY_TOL} x {scale:.3e}")
+    res["launches"] = _counts()
+    check(res["launches"]["sgmv_shrink"] > 0,
+          f"{where}: the state carry ran no SGMV kernel")
+    del model, params, pool
+    _release(torch)
+    return res
+
+
+def ssm_phase(torch, dev):
+    """Phase 13 (see the module docstring). Returns its record, keyed by
+    model as phases 11-12's: kernel rows at the new shapes (hd 80
+    attention included), the SSD block's rows, route checks (the SSM
+    models': bf16 counted, f32 held), the state carry, serves (their
+    launches included) and the refusals."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
+    from repro_torch.serving.workload import WorkloadConfig, generate_trace
+
+    out = {}
+    routes = {"kernels": ROUTES["kernels"], "plain": ROUTES["plain"]}
+
+    def burst(cfg, n=8, **kw):
+        wl = dict(n_adapters=cfg.lora.n_adapters, request_rate=200.0,
+                  duration=0.1, input_range=(40, 200), output_range=(8, 24),
+                  vocab_size=cfg.vocab_size, seed=18)
+        wl.update(kw)
+        trace = generate_trace(WorkloadConfig(**wl))[:n]
+        check(len(trace) == n, f"burst of {len(trace)} requests")
+        return trace
+
+    def serves(cfg, params, source, spec, rec):
+        """edgelora dense vs paged (8 requests of 40-200 tokens), then
+        llamacpp (merged only) and dlora (unmerges) on short prompts."""
+        rec["serve_edgelora"] = _summaries(dense_paged_pair(
+            torch, dev, cfg, params, source, spec, lambda: burst(cfg),
+            f"{cfg.name} edgelora", max_ctx=MAX_CTX,
+            prompt_buckets=(64, 256)))
+        short = dict(n=10, input_range=(8, 64), output_range=(4, 12))
+        for policy in ("llamacpp", "dlora"):
+            eng = _variant_engine(torch, dev, cfg, params, source, policy,
+                                  "dense", max_ctx=MAX_CTX,
+                                  prompt_buckets=(32, 64, 128),
+                                  memory_budget=1e12)
+            run = qwen2_serve(torch, dev, f"{cfg.name} {policy} dense", eng,
+                              burst(cfg, **short), spec)
+            if policy == "llamacpp":
+                check(run["unmerged_calls"] == 0 and run["merged_calls"] > 0
+                      and run["launches"]["sgmv_shrink"] == 0,
+                      f"{cfg.name} llamacpp: unmerged steps ran")
+            else:
+                check(run["unmerged_calls"] > 0,
+                      f"{cfg.name} dlora: no unmerged step on a diverse "
+                      "trace")
+            run["summary"] = dataclasses.asdict(run["summary"])
+            rec[f"serve_{policy}"] = run
+            del eng
+            _release(torch)
+
+    def refusals(cfg, params, source, reason):
+        """The prefix cache and chunked prefill refused with the
+        reference's ``ValueError`` (its first reason: ``reason``)."""
+        got = {}
+        for feature, kw in (("prefix_cache", dict(kv_backend="paged",
+                                                  prefix_cache=True)),
+                            ("prefill_chunk", dict(prefill_chunk=32))):
+            try:
+                EdgeLoRAEngine(cfg, EngineConfig(n_slots=N_SLOTS,
+                                                 max_ctx=MAX_CTX, **kw),
+                               params=params, device=dev,
+                               adapter_source=source)
+            except ValueError as e:
+                got[feature] = str(e)
+            _release(torch)
+            check(got.get(feature, "").startswith(
+                f"{feature} unsupported for {cfg.name}: {reason}"),
+                f"{cfg.name}: {feature} was not refused: {got}")
+        return got
+
+    def f32_leaves(params):
+        for slot in params["layers"].values():
+            for name in ("dt_bias", "A_log", "D"):
+                check(slot["ssm"][name].dtype == torch.float32,
+                      f"{name} not f32")
+
+    # ---- mamba2-130m, full depth -----------------------------------------
+    t0 = time.perf_counter()
+    cfg = get_config("mamba2-130m")
+    check(cfg.n_layers == 24 and cfg.d_model == 768 and cfg.d_ff == 0
+          and cfg.vocab_size == 50280 and cfg.tie_embeddings
+          and cfg.ssm.d_state == 128 and cfg.ssm.head_dim == 64
+          and cfg.ssm.expand == 2 and cfg.ssm.chunk_size == 256
+          and cfg.lora.rank == 16
+          and cfg.lora.target_modules == ("in_proj", "out_proj"),
+          "not the full mamba2-130m config")
+    cfg = dataclasses.replace(cfg, lora=dataclasses.replace(
+        cfg.lora, n_adapters=2 * cfg.lora.max_resident))
+    spec = variant_spec(cfg, cases=[("decode", N_SLOTS),
+                                    ("prefill", len(SSM_LENGTHS) * SSM_S)])
+    check(spec["lora_calls"] == 48 and spec["attn_calls"] == 0
+          and spec["gathers"] == 0, f"mamba2 launch spec {spec}")
+    rec = dict(layers=cfg.n_layers, kernel_rows=kernel_phase(torch, dev,
+                                                             spec))
+    params = _variant_params(torch, dev, cfg, 51)
+    f32_leaves(params)
+    rec["ssd_rows"] = ssd_rows(torch, dev, cfg, params)
+    source = make_adapter_source(torch, dev, cfg)
+    rec["route_check"] = route_check(
+        torch, dev, cfg, params, spec, routes, lengths=SSM_LENGTHS, s=SSM_S,
+        decode_steps=SSM_DECODE_STEPS, where="mamba2-130m bf16 (counted)",
+        tol="count")
+    serves(cfg, params, source, spec, rec)
+    rec["refusals"] = refusals(cfg, params, source,
+                               "per-sequence recurrent state")
+    del params, source
+    _release(torch)
+    rec["f32"] = f32_checks(torch, dev, cfg, cfg.n_layers, 52, "mamba2-130m")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"mamba2-130m {rec['seconds']:.1f}s")
+    out["mamba2-130m"] = rec
+
+    # ---- zamba2-2.7b, full depth -----------------------------------------
+    t0 = time.perf_counter()
+    cfg = get_config("zamba2-2.7b")
+    check(cfg.n_layers == 54 and cfg.d_model == 2560 and cfg.n_heads == 32
+          and cfg.n_kv_heads == 32 and cfg.resolved_head_dim == 80
+          and cfg.d_ff == 10240 and cfg.vocab_size == 32000
+          and cfg.shared_attn_every == 6 and cfg.ssm.d_state == 64
+          and cfg.ssm.head_dim == 64 and cfg.ssm.chunk_size == 256
+          and cfg.lora.rank == 16 and cfg.lora.target_modules == (
+              "in_proj", "out_proj", "q", "k", "v", "o"),
+          "not the full zamba2-2.7b config")
+    cfg = dataclasses.replace(cfg, lora=dataclasses.replace(
+        cfg.lora, n_adapters=2 * cfg.lora.max_resident))
+    spec = variant_spec(cfg, cases=[("decode", N_SLOTS),
+                                    ("prefill", len(SSM_LENGTHS) * SSM_S)])
+    check(spec["lora_calls"] == 144 and spec["attn_calls"] == 9
+          and spec["gathers"] == 2 and spec["groups"] == 9,
+          f"zamba2 launch spec {spec}")
+    rec = dict(layers=cfg.n_layers,
+               kernel_rows=kernel_phase(torch, dev, spec),
+               gather_rows=gather_phase(torch, dev, dict(
+                   spec, gather_cases=(("k bf16", "bfloat16",
+                                        cfg.kv_size),))),
+               attention_rows=variant_attention_rows(
+                   torch, dev, cfg, ctx=SSM_S, depths=SSM_DEPTHS,
+                   prefill=(len(SSM_LENGTHS), SSM_S)))
+    params = _variant_params(torch, dev, cfg, 53)
+    f32_leaves(params)
+    rec["ssd_rows"] = ssd_rows(torch, dev, cfg, params)
+    source = make_adapter_source(torch, dev, cfg)
+    rec["route_check"] = route_check(
+        torch, dev, cfg, params, spec, routes, lengths=SSM_LENGTHS, s=SSM_S,
+        decode_steps=SSM_DECODE_STEPS, where="zamba2-2.7b bf16 (counted)",
+        tol="count")
+    serves(cfg, params, source, spec, rec)
+    rec["refusals"] = refusals(cfg, params, source,
+                               "weight-tied shared-attention ring")
+    del params, source
+    _release(torch)
+    rec["f32"] = f32_checks(
+        torch, dev, cfg, ZAMBA2_CARRY_LAYERS, 54,
+        f"zamba2-2.7b ({ZAMBA2_CARRY_LAYERS} of 54 layers)")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"zamba2-2.7b {rec['seconds']:.1f}s")
+    out["zamba2-2.7b"] = rec
+
+    # ---- qwen1.5-110b, 16 of 80 layers -----------------------------------
+    t0 = time.perf_counter()
+    full = get_config("qwen1.5-110b")
+    check(full.n_layers == 80 and full.d_model == 8192 and full.n_heads == 64
+          and full.n_kv_heads == 8 and full.resolved_head_dim == 128
+          and full.d_ff == 49152 and full.vocab_size == 152064
+          and full.attn.qkv_bias and not full.tie_embeddings
+          and full.lora.rank == 16 and len(full.lora.target_modules) == 7,
+          "not the full qwen1.5-110b config")
+    cfg = dataclasses.replace(full, n_layers=QWEN15_LAYERS,
+                              lora=dataclasses.replace(
+                                  full.lora,
+                                  n_adapters=2 * full.lora.max_resident))
+    log(f"qwen1.5-110b: full width, {QWEN15_LAYERS} of its {full.n_layers} "
+        f"layers ({full.param_count() / 1e9:.1f}B params at full depth)")
+    spec = variant_spec(cfg, cases=[
+        ("decode", N_SLOTS), ("prefill", len(QWEN15_LENGTHS) * QWEN15_S)])
+    check(_step_counts(spec) == (112, 16), f"qwen1.5 launch spec {spec}")
+    rec = dict(layers=QWEN15_LAYERS, full_layers=full.n_layers,
+               kernel_rows=kernel_phase(torch, dev, spec),
+               gather_rows=gather_phase(torch, dev, dict(
+                   spec, gather_cases=(("k bf16", "bfloat16",
+                                        cfg.kv_size),))),
+               attention_rows=variant_attention_rows(
+                   torch, dev, cfg, ctx=QWEN15_S, depths=QWEN15_DEPTHS,
+                   prefill=(len(QWEN15_LENGTHS), QWEN15_S)))
+    params = _moe_params(torch, dev, cfg, 61)
+    source = make_adapter_source(torch, dev, cfg)
+    rec["route_check"] = route_check(
+        torch, dev, cfg, params, spec, routes, lengths=QWEN15_LENGTHS,
+        s=QWEN15_S, decode_steps=SSM_DECODE_STEPS,
+        where=f"qwen1.5-110b bf16 ({QWEN15_LAYERS} of 80 layers)")
+    serves(cfg, params, source, spec, rec)
+    del params, source
+    _release(torch)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"qwen1.5-110b {rec['seconds']:.1f}s")
+    out["qwen1.5-110b"] = rec
+    return out
+
+
 def profile_decode(torch, decode, engine, captured, label: str,
                    steps: int = 5):
     """Device time by kernel over a few decode steps of ``decode`` on the
@@ -3226,6 +3716,12 @@ def main(argv=None) -> int:
     _release(torch)
     log(f"MoE phase {time.perf_counter() - t0:.1f}s")
 
+    # ---- 13. mamba2-130m, zamba2-2.7b, qwen1.5-110b ---------------------
+    t0 = time.perf_counter()
+    ssm = ssm_phase(torch, dev)
+    _release(torch)
+    log(f"SSM phase {time.perf_counter() - t0:.1f}s")
+
     # launches over every serve, the main path's and each later one's
     serves = {"dense": serve["launches"],
               "paged_compare_dense": paged["dense"]["launches"],
@@ -3240,7 +3736,7 @@ def main(argv=None) -> int:
         if isinstance(runs, dict) and "dense" in runs:
             for kv, run in runs.items():
                 serves[f"qwen2_{key}_{kv}"] = run["launches"]
-    for arch, rec in {**variants, **moe}.items():
+    for arch, rec in {**variants, **moe, **ssm}.items():
         for key, runs in rec.items():
             if not key.startswith("serve_"):
                 continue
@@ -3265,13 +3761,13 @@ def main(argv=None) -> int:
                     shape=shape, **extra)
 
     def variant_rows(name):
-        """Every row of kernel ``name`` at phase 11's and 12's shapes."""
+        """Every row of kernel ``name`` at phases 11-13's shapes."""
         out, table = [], {"sgmv_shrink": "kernel_rows",
                           "sgmv_expand": "kernel_rows",
                           "paged_gather_pages": "gather_rows",
                           "flash_decode": "attention_rows",
                           "flash_prefill": "attention_rows"}[name]
-        for rec in (*variants.values(), *moe.values()):
+        for rec in (*variants.values(), *moe.values(), *ssm.values()):
             out += [r for r in rec.get(table, []) if r["kernel"] == name]
         return out
 
@@ -3368,7 +3864,7 @@ def main(argv=None) -> int:
              qwen2_kernel_rows=q_rows, qwen2_gather_rows=q_gather,
              qwen2_attention_rows=q_attention, qwen2=qwen2,
              route_checks=routes, learned_router=learned,
-             variants=variants, moe=moe,
+             variants=variants, moe=moe, ssm=ssm,
              seconds=time.perf_counter() - t_start), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -43,7 +43,9 @@ def params_from_numpy(model: Model, tree: Dict) -> Dict:
     checked against its config), each leaf in its own dtype: an MoE
     slot's ``moe`` subtree crosses as it is, its router [ng, d, E] f32,
     its experts' ``up``/``gate``/``down`` [ng, E, d, f] / [ng, E, f, d]
-    and a ``shared`` expert's MLP. Returns ``model.params``."""
+    and a ``shared`` expert's MLP; a Mamba-2 slot's ``ssm`` subtree with
+    its ``dt_bias``, ``A_log`` and ``D`` in f32 whatever the model dtype;
+    zamba2's unstacked ``shared_attn`` block. Returns ``model.params``."""
     return model.load_params(tree_from_numpy(tree, model.device))
 
 

@@ -351,7 +351,8 @@ _ALIAS.update({
 # repro_torch/configs/); every other arch id raises until its slice lands.
 PORTED_ARCHS = ("llama3_8b", "qwen2_0_5b", "llama3_2_3b", "openelm_1_1b",
                 "gemma2_9b", "starcoder2_7b", "chameleon_34b", "dbrx_132b",
-                "llama4_maverick_400b_a17b")
+                "llama4_maverick_400b_a17b", "qwen1_5_110b", "mamba2_130m",
+                "zamba2_2_7b")
 
 
 def get_config(arch: str) -> ModelConfig:

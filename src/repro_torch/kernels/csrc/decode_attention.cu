@@ -62,6 +62,11 @@
 //     V, exactly as one long walk.
 // Entries past C are not keys and join no sum.
 //
+// Head dims 32, 64, 80, 128 and 256. At 80 (zamba2's shared block) a bf16
+// row is 160 bytes, 10 cp.async chunks (f32 20, int8 5), and every shared
+// array starts on 16 bytes: K rows of 88 bf16 / 84 f32 / 96 int8, V rows of
+// 80, so q_s (read as float4) lands at a multiple of 16 for any split.
+//
 // Plain C interface, built with nvcc and bound with ctypes
 // (repro_torch/kernels/_build.py, repro_torch/kernels/decode_attention.py).
 // The entry point launches on the caller's stream and returns a CUDA error
@@ -368,6 +373,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                                  kps, ns, scale, window, chunked, softcap, st);
     case 64:
       return launch<TQ, TKV, 64>(q, k, v, ks, vs, kv_pos, q_pos, out, pa, pm, ar, b, c, kh, g,
+                                 kps, ns, scale, window, chunked, softcap, st);
+    case 80:
+      return launch<TQ, TKV, 80>(q, k, v, ks, vs, kv_pos, q_pos, out, pa, pm, ar, b, c, kh, g,
                                  kps, ns, scale, window, chunked, softcap, st);
     case 128:
       return launch<TQ, TKV, 128>(q, k, v, ks, vs, kv_pos, q_pos, out, pa, pm, ar, b, c, kh, g,

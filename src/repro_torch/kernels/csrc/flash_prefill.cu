@@ -51,7 +51,7 @@
 //
 // f32: CUDA cores (flash_prefill_kernel), an explicit dispatch on dtype:
 // mma.sync has no f32 path that meets 1e-5 of max|plain| (TF32 keeps about
-// three digits). One CTA per (q tile of 4096 / hd rows, q head, b) stages
+// three digits). One CTA per (q tile of ~4096 / hd rows, q head, b) stages
 // its q tile in shared memory as f32 and walks the KV tiles of kv head
 // h / g (32 keys each); scores, the online softmax (one warp lane per key)
 // and the PV product run in f32 with acc in registers.
@@ -63,6 +63,13 @@
 // tile into its sentinel mean, as the TPU kernel does. Visibility depends
 // only on positions, so the bf16 template decides it before it loads a
 // tile, over the CTA's positions.
+//
+// Head dims 32, 64, 80, 128 and 256. At 80 (zamba2's shared block) the bf16
+// tile takes 5 k-steps of 16 in Q.K^T and 5 ldmatrix.x4.trans loads (10 n8
+// tiles) in P.V; its rows are 88 bf16 (176 bytes, 11 x 16: 16-byte aligned
+// for cp.async and ldmatrix, and 8 rows at 44-word offsets hit disjoint
+// banks). The f32 tile takes 48 query rows, so 30 accumulators a thread
+// cover it exactly.
 //
 // Plain C interface, built with nvcc and bound with ctypes
 // (repro_torch/kernels/_build.py, repro_torch/kernels/flash_prefill.py).
@@ -86,9 +93,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kKeys = 32;  // keys per KV tile: one per warp lane in the softmax
 
 template <int HD> struct PrefillTile {
-  static constexpr int kRows = 4096 / HD;               // query rows per CTA
+  // query rows per CTA: a q tile of 4096 f32, cut so that the tile's
+  // elements share out evenly over the threads (hd 80: 48 rows, not 51)
+  static constexpr int kRows = 4096 / HD / (kThreads / 16) * (kThreads / 16);
   static constexpr int kKStride = HD + 1;               // padded K rows
   static constexpr int kAcc = kRows * HD / kThreads;    // acc registers per thread
+  static_assert(kRows * HD % kThreads == 0, "acc must cover the tile exactly");
   static constexpr size_t kSmem =
       sizeof(float) * (kRows * HD + kKeys * kKStride + kKeys * HD + kRows * kKeys +
                        3 * kRows) +
@@ -578,6 +588,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                            window, chunked, softcap, st);
     case 64:
       return launch<T, 64>(q, k, v, qpos, kpos, out, b, sq, skv, h, kh, scale, causal,
+                           window, chunked, softcap, st);
+    case 80:
+      return launch<T, 80>(q, k, v, qpos, kpos, out, b, sq, skv, h, kh, scale, causal,
                            window, chunked, softcap, st);
     case 128:
       return launch<T, 128>(q, k, v, qpos, kpos, out, b, sq, skv, h, kh, scale, causal,

@@ -38,7 +38,7 @@ from repro_torch.kernels import _build, ref
 # kernel launches; incremented only where the kernel launches
 launches: Dict[str, int] = {"flash_decode": 0}
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 # split plan: at least two CTAs on each of an H100's 132 SMs, splits of at
 # least 32 keys (fewer partials to merge) where C has them, and a split's
 # K/V and scores within 64 KiB of shared memory (three CTAs per SM fit)

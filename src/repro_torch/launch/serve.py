@@ -8,12 +8,16 @@ synthetic workload (``repro.launch.serve`` with ``--device``).
         --n-adapters 4 --rate 3 --duration 2 --max-ctx 64
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch qwen2-0.5b --policy dlora --trace out.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mamba2-130m --reduced --n-adapters 6 --duration 2
     PYTHONPATH=src python -m repro_torch.launch.serve --full   # on a GPU
 
 Runs on ``cuda`` unless ``--device cpu`` is given (no CUDA: it raises).
 ``--reduced`` (the default) is the tiny same-family variant; ``--full``
 the published widths of ``--arch`` (llama3-8b, qwen2-0.5b, llama3.2-3b,
-openelm-1.1b, gemma2-9b, starcoder2-7b, chameleon-34b). The flags are the reference's: all four ``--policy``
+openelm-1.1b, gemma2-9b, starcoder2-7b, chameleon-34b, dbrx-132b,
+llama4-maverick-400b-a17b, qwen1.5-110b, mamba2-130m, zamba2-2.7b). The
+flags are the reference's: all four ``--policy``
 values, ``--kv-backend paged``, ``--prefix-cache`` (which implies the
 paged backend) and ``--prefill-chunk`` serve as there, and the summary
 row carries their ``kv=`` and ``prefix=`` digests. ``--trace PATH``

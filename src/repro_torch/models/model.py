@@ -1,4 +1,4 @@
-"""Model API, dense and MoE decoders (``repro.models.model``).
+"""Model API, dense, MoE, SSM and hybrid decoders (``repro.models.model``).
 
 ``Model`` is an ``nn.Module`` whose ``weights`` child mirrors the JAX
 param tree path for path (``weights.layers.slot0.attn.wq`` is
@@ -38,19 +38,27 @@ def check_supported(cfg: ModelConfig) -> None:
     bias, QK-norm, attention and final logit softcaps, an int8 KV cache,
     post-norms, scaled embeddings, gated or plain MLPs, tied or untied
     embeddings; the early-fusion VLM family (chameleon), whose image
-    tokens share the vocabulary, so it is one token stream; and the MoE
+    tokens share the vocabulary, so it is one token stream; the MoE
     family (dbrx, llama4: top-k capacity dispatch, a shared expert, MoE
-    on every ``moe_layer_period``-th layer)."""
+    on every ``moe_layer_period``-th layer); the SSM family (mamba2:
+    Mamba-2 blocks only, ``layer_pattern ('none',)``) and the hybrid
+    family (zamba2: Mamba-2 slots with a weight-tied attention + MLP
+    block after every ``shared_attn_every``)."""
     a = cfg.attn
+    recurrent = cfg.family == "ssm" or bool(cfg.shared_attn_every)
     unported = {
-        "family not in ('dense', 'vlm', 'moe')": cfg.family not in (
-            "dense", "vlm", "moe"),
+        "family not in ('dense', 'vlm', 'moe', 'ssm', 'hybrid')":
+            cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"),
         "attention kinds other than global/local": any(
-            k not in ("global", "local") for k in a.layer_pattern),
+            k not in ("global", "local") for k in a.layer_pattern)
+            and not (cfg.family == "ssm" and a.layer_pattern == ("none",)),
         "rope=False": not a.rope,
-        "ssm/encoder/shared_attn": (cfg.ssm is not None
-                                    or cfg.encoder is not None
-                                    or bool(cfg.shared_attn_every)),
+        "encoder": cfg.encoder is not None,
+        "an ssm config outside the ssm/hybrid stacks": (
+            (cfg.ssm is None) == recurrent),
+        # the reference's shared block has no post-norms
+        "post_norm with shared_attn": cfg.post_norm
+            and bool(cfg.shared_attn_every),
     }
     found = [k for k, v in unported.items() if v]
     if found:

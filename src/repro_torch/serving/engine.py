@@ -230,7 +230,9 @@ class EdgeLoRAEngine:
     # device-side adapter pool (heterogeneous memory manager, device face)
     # ------------------------------------------------------------------
 
-    _LEAD_AXIS = {"layers": 1}
+    # the pool axis of each LoRA subtree: behind the group axis under
+    # 'layers', leading under zamba2's unstacked 'shared_attn'
+    _LEAD_AXIS = {"layers": 1, "shared_attn": 0}
 
     def _adapter_host(self, adapter_id: int) -> Any:
         """'Disk' fetch: adapters are deterministic functions of their id
@@ -510,6 +512,26 @@ class EdgeLoRAEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _recurrent_leaves(self, args: Tuple) -> List[torch.Tensor]:
+        """The engine cache's per-slot recurrent state (the leaves of its
+        nodes that hold no K/V: SSM conv rings and states) when ``args``
+        hands the cache to a step, else nothing."""
+        if not any(a is self.cache for a in args):
+            return []
+        leaves: List[torch.Tensor] = []
+
+        def walk(node: Dict) -> None:
+            if "k" in node:
+                return
+            for v in node.values():
+                if isinstance(v, dict):
+                    walk(v)
+                else:
+                    leaves.append(v)
+
+        walk(self.cache)
+        return leaves
+
     def _timed(self, key: Tuple, fn: Callable, *args: Any,
                now: Optional[float] = None,
                requests: Optional[List[Request]] = None
@@ -517,7 +539,8 @@ class EdgeLoRAEngine:
         """Run fn; charge its measured duration. The first call per key
         warms up and is *not* charged: fn runs twice, so every step is a
         pure function of its inputs (repeated in-place cache writes store
-        the same values). The ``perf_counter`` calls are the reference's,
+        the same values, and the recurrent state the warm-up advanced is
+        restored first). The ``perf_counter`` calls are the reference's,
         in the same order. With a tracer attached and ``now`` given, the
         charge lands on the trace as a compute span (a key's first call
         also as a compile instant: the warm-up); ``requests`` names the
@@ -525,7 +548,14 @@ class EdgeLoRAEngine:
         excluded)."""
         warm = key not in self._durations
         if warm:
+            # the warm-up's in-place attention writes are repeated with
+            # the same values; the recurrent state (SSM conv rings and
+            # states) it advances is put back before the charged call
+            state = self._recurrent_leaves(args)
+            saved = [t.clone() for t in state]
             out = fn(*args)  # warm-up (uncharged)
+            for t, v in zip(state, saved):
+                t.copy_(v)
             self._sync()
             t0 = self._timer.perf_counter()
             out = fn(*args)

@@ -325,8 +325,9 @@ def gather_kv(arena: np.ndarray, table: np.ndarray, length: int
 # [ng, n_blocks + 1, block_size, ...] — one shared physical page pool per
 # leaf, block ``n_blocks`` being the trash page — and drops 'pos'
 # entirely: ring positions are a pure function of per-sequence lengths,
-# so the view recomputes them. Non-attention leaves (none in the ported
-# dense stack) would keep their dense per-slot [ng, B, ...] layout.
+# so the view recomputes them. Non-attention leaves (the SSM slots' conv
+# rings and recurrent states of mamba2 and zamba2) keep their dense
+# per-slot [ng, B, ...] layout.
 #
 # Torch indexing wraps negative indices silently, so every block index
 # is resolved to a real page (or the trash page) before it indexes.

@@ -1278,3 +1278,228 @@ def test_cuda_moe_engine_steps_make_no_host_sync(dev, arch, over, kv, step):
     pages = {"dense": 0, "paged": 2 if arch.startswith("dbrx") else 8}
     assert pg.launches["paged_gather_pages"] == (
         pages[kv] if "decode" in step else 0)
+
+
+# ---------------------------------------------------------------------------
+# head dim 80 (zamba2's shared block), the SSM family's widths and steps
+# ---------------------------------------------------------------------------
+
+# (b, sq, skv, h, kh, offset, window): GQA 1 (zamba2's 32/32) and 2,
+# ragged Sq and Skv, a suffix over a cached prefix, a window
+HD80_PREFILL = [
+    (2, 64, 64, 32, 32, 0, None),
+    (2, 77, 77, 4, 2, 0, None),
+    (1, 300, 300, 8, 8, 0, 64),
+    (2, 33, 97, 4, 2, 64, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kh,offset,window", HD80_PREFILL)
+def test_cuda_flash_prefill_hd80_matches_plain(dev, dtype, b, sq, skv, h, kh,
+                                               offset, window):
+    """``flash_prefill`` at head dim 80 (the tensor-core template's 5
+    k-steps and 10 n8 tiles; the f32 template's 48-row tile), within its
+    tolerance of the plain version; a row that sees no key is the mean of
+    V."""
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator(device=dev).manual_seed(80)
+    q = torch.randn(b, sq, h, 80, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, skv, kh, 80, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, skv, kh, 80, generator=gen, device=dev).to(dtype)
+    kw = dict(window=window)
+    if offset:
+        kw.update(qpos=torch.arange(offset, offset + sq, dtype=torch.int32,
+                                    device=dev),
+                  kpos=torch.arange(skv, dtype=torch.int32, device=dev))
+    fp.reset_launches()
+    got = fp.flash_prefill(q, k, v, **kw)
+    want = fp.flash_prefill_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fp.launches == {"flash_prefill": 1}
+    _attn_close(got, want, dtype)
+    # an idle row: positions before every key
+    qpos = torch.arange(sq, dtype=torch.int32, device=dev) - 1000
+    qpos[1:] += 1000 + skv
+    kpos = torch.arange(skv, dtype=torch.int32, device=dev)
+    got = fp.flash_prefill(q, k, v, qpos=qpos, kpos=kpos)
+    torch.cuda.synchronize()
+    _attn_close(got, fp.flash_prefill_plain(q, k, v, qpos=qpos, kpos=kpos),
+                dtype)
+    _attn_close(got[:, 0], v.float().mean(1).repeat_interleave(h // kh, 1),
+                dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,c", [(8, 32, 32, 4096), (3, 4, 2, 37),
+                                      (2, 8, 4, 300)])
+def test_cuda_flash_decode_hd80_matches_plain(dev, dtype, b, h, kh, c):
+    """``flash_decode`` at head dim 80 (160-byte bf16 rows: 10 cp.async
+    chunks), GQA 1 and 2, over rings split across CTAs (4096) or not,
+    part-filled rows and an idle last row (the mean of V)."""
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=dev).manual_seed(81)
+    q = torch.randn(b, h, 80, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, c, kh, 80, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, c, kh, 80, generator=gen, device=dev).to(dtype)
+    idx = torch.arange(c, device=dev, dtype=torch.int32)
+    depth = torch.randint(1, c + 1, (b,), generator=gen, device=dev)
+    kv_pos = torch.where(idx[None] < depth[:, None], idx[None], -1).to(
+        torch.int32)
+    kv_pos[-1] = -1
+    q_pos = (depth - 1).to(torch.int32)
+    da.reset_launches()
+    got = da.flash_decode(q, k, v, kv_pos, q_pos)
+    want = da.flash_decode_plain(q, k, v, kv_pos, q_pos)
+    torch.cuda.synchronize()
+    assert da.launches == {"flash_decode": 1}
+    _attn_close(got, want, dtype)
+    _attn_close(got[-1], v[-1].float().mean(0).repeat_interleave(h // kh, 0),
+                dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [8, 512])
+@pytest.mark.parametrize("d_in,d_out", [(768, 3352), (2560, 10448),
+                                        (49152, 8192)])
+def test_cuda_sgmv_ssm_and_qwen15_widths(dev, dtype, t, d_in, d_out):
+    """Rank 16 over a 16-slot pool at the widths new in this family:
+    mamba2's and zamba2's ``in_proj`` expands (3352 and 10448, not
+    multiples of 64) and qwen1.5-110b's ``down`` shrink (d_in 49152), the
+    plan's ``n_used`` as the main path passes it; ``ops.sgmv`` beside."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(15)
+    r, n_pool = 16, 16
+    x = torch.randn(t, d_in, generator=gen, device=dev).to(dtype)
+    a = torch.randn(n_pool, r, d_in, generator=gen, device=dev) / r ** 0.5
+    b = torch.randn(n_pool, d_out, r, generator=gen, device=dev) * 0.01
+    slots = torch.randint(0, n_pool, (t,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    blk_t = ops.auto_blk_t(t, n_pool)
+    plan = ops.plan_grouping(slots, n_pool, blk_t)
+    xbuf = x.new_zeros((plan.n_padded, d_in))
+    xbuf[plan.padded_pos.long()] = x[plan.perm]
+    bs, nu = plan.block_slots, plan.n_used
+    s = sgmv.sgmv_shrink(xbuf, a, bs, blk_t=blk_t, n_used=nu)
+    _sgmv_close(s, sgmv.shrink_plain(xbuf, a, bs, blk_t=blk_t, n_used=nu))
+    y = sgmv.sgmv_expand(s, b, bs, blk_t=blk_t, compute_dtype=dtype,
+                         n_used=nu)
+    _sgmv_close(y, sgmv.expand_plain(s, b, bs, blk_t=blk_t,
+                                     compute_dtype=dtype, n_used=nu))
+    got = ops.sgmv(x, a, b, slots, 2.0, n_slots=n_pool, blk_t=None)
+    want = (2.0 * ref.sgmv_ref(x, a.to(dtype), b.to(dtype), slots,
+                               1.0)).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_cuda_ssm_blocks_match_cpu(dev, arch, monkeypatch):
+    """``ssm_block_full`` (ragged rows, ``seq_mask``, ``lengths``, a
+    2-token prompt, over two chunks, batched LoRA) and two
+    ``ssm_block_decode`` steps on the card against themselves on the CPU,
+    in f32: outputs, states and conv tails within 1e-5 of max|cpu| plus
+    the SSD's own conditioning. The reference's algorithm takes each decay
+    exp(cs_i - cs_j) from within-chunk cumsums of dt·A, which reach
+    |cs| of several hundred here (A up to 16): a difference of two such
+    sums carries one f32 ulp of |cs| (~3e-5 at 485) as a relative error,
+    and the card's parallel scan and the CPU's sequential sum round
+    differently, so 8 ulps of the largest |cs| are added."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lora import LoRAMode
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import group_view, init_lora_stack
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              dtype="float32")
+    gen = torch.Generator().manual_seed(3)
+    sp = group_view(ssm.ssm_init(gen, cfg, stack=(1,), dtype=torch.float32),
+                    0)
+    for name in ("dt_bias", "conv_b", "D"):
+        sp[name].normal_(0.0, 0.3, generator=gen)
+    sp["gate_norm"]["scale"].normal_(0.0, 0.1, generator=gen)
+    sp["in_proj"].mul_(sp["in_proj"].shape[0] ** -0.5)
+    sp["out_proj"].mul_(sp["out_proj"].shape[0] ** -0.5)
+    lora = group_view(init_lora_stack(gen, cfg, n_slots=4)["layers"],
+                      0)["slot0"]
+    for pair in lora.values():
+        pair["B"].normal_(0.0, 0.05, generator=gen)
+    lengths = torch.tensor([40, 2, 23], dtype=torch.int32)
+    x = torch.randn(3, 40, cfg.d_model, generator=gen)
+    mask = torch.arange(40)[None] < lengths[:, None]
+    steps = [torch.randn(3, cfg.d_model, generator=gen) for _ in range(2)]
+    ids = torch.tensor([2, 0, 3], dtype=torch.int32)
+    cs_max = []
+    ssd = ssm.ssd_chunked
+
+    def recording(x, dt, a, b, c, *, chunk, initial_state=None):
+        cs = (dt * a).reshape(dt.shape[0], -1, chunk, dt.shape[2]).cumsum(2)
+        cs_max.append(cs.abs().max().item())
+        return ssd(x, dt, a, b, c, chunk=chunk, initial_state=initial_state)
+
+    monkeypatch.setattr(ssm, "ssd_chunked", recording)
+
+    def to(tree, where):
+        if isinstance(tree, dict):
+            return {k: to(v, where) for k, v in tree.items()}
+        return tree.to(where)
+
+    out = {}
+    for where in ("cpu", dev):
+        p, lo = to(sp, where), to(lora, where)
+        mode = LoRAMode("batched", ids.to(where), 2.0, "einsum")
+        y, state, tail = ssm.ssm_block_full(
+            p, x.to(where), cfg, lo, mode, return_state=True,
+            seq_mask=mask.to(where), lengths=lengths.to(where))
+        res, cache = [y, state, tail], {"conv": tail, "state": state}
+        for xt in steps:
+            yd, cache = ssm.ssm_block_decode(p, xt.to(where), cache, cfg, lo,
+                                             mode)
+            res += [yd, cache["state"], cache["conv"]]
+        out[str(where)] = [t.cpu() for t in res]
+    tol = 1e-5 + 8 * 2.0 ** -24 * max(cs_max)
+    for c, g in zip(out["cpu"], out[str(dev)]):
+        assert torch.isfinite(g).all()
+        err = (g - c).abs().max().item()
+        assert err <= tol * c.abs().max().item(), (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,step", [
+    ("dense", "_prefill"), ("dense", "_decode"), ("paged", "_decode_paged"),
+])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_cuda_ssm_engine_steps_make_no_host_sync(dev, arch, kv, step):
+    """Whole engine steps of reduced mamba2 and zamba2 (the chunked SSD,
+    the conv tail's gather, the recurrent decode; zamba2's shared block
+    on the attention kernels at its reduced head dim) under
+    ``torch.cuda.set_sync_debug_mode("error")``: the same tokens as the
+    captured call; each SGMV kernel once per LoRA call (in_proj and
+    out_proj a layer, q, k, v, o a shared-block application), one
+    attention launch per shared-block application, the shared ring's two
+    page gathers per paged decode step (none for mamba2)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import paged_gather as pg
+    fn, seen = _captured_step(dev, "edgelora", kv, step, arch)
+    for mod in (sgmv, da, fp, pg):
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tokens, _ = fn(*seen["args"], **seen["kw"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(tokens, seen["tokens"])
+    # reduced depths: mamba2 2 layers; zamba2 4 layers in 2 groups
+    layers, shared = (2, 0) if arch.startswith("mamba2") else (4, 2)
+    assert sgmv.launches["sgmv_shrink"] == 2 * layers + 4 * shared
+    assert fp.launches["flash_prefill"] + da.launches["flash_decode"] == \
+        shared
+    assert pg.launches["paged_gather_pages"] == (
+        2 if kv == "paged" and shared else 0)

@@ -36,8 +36,8 @@ from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.serving import engine as jax_engine  # noqa: E402
 from repro.serving import workload as jax_workload  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import (EncoderConfig, SSMConfig,  # noqa: E402
-                                 get_config, reduced_config)
+from repro_torch.configs import (EncoderConfig, get_config,  # noqa: E402
+                                 reduced_config)
 from repro_torch.serving import workload  # noqa: E402
 from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig  # noqa: E402
 
@@ -186,23 +186,24 @@ def _summary_json(summary):
 
 
 def _unported_cfg(feature):
-    """A config with one feature outside the ported slices."""
+    """A config with one feature outside the ported slices (whisper's,
+    the encoder-decoder family)."""
     _, tcfg = _configs()
-    if feature == "mamba2":
-        return reduced_config(get_config("mamba2-130m"))
+    if feature == "whisper":
+        return reduced_config(get_config("whisper-medium"))
     if feature == "encoder":   # whisper's encoder tower
         return dataclasses.replace(tcfg, encoder=EncoderConfig(n_layers=2))
-    if feature == "shared_attn":   # zamba2's weight-tied block
-        return dataclasses.replace(tcfg, shared_attn_every=2)
-    # a Mamba-2 block in a decoder config (the hybrid families' mixer)
-    return dataclasses.replace(tcfg, ssm=SSMConfig(d_state=16))
+    if feature == "rope":   # whisper's decoder: learned positions
+        return dataclasses.replace(tcfg, attn=dataclasses.replace(
+            tcfg.attn, rope=False))
+    return dataclasses.replace(tcfg, family="audio")
 
 
 @pytest.mark.parametrize("change,msg", [
-    ("mamba2", "arch 'mamba2-130m'"),
+    ("whisper", "arch 'whisper-medium'"),
     ("encoder", "encoder"),
-    ("shared_attn", "shared_attn"),
-    ("ssm", "ssm"),
+    ("rope", "rope=False"),
+    ("audio", "family not in"),
 ])
 def test_unported_features_raise(change, msg):
     with pytest.raises(NotImplementedError, match=msg):
@@ -225,6 +226,17 @@ def test_cli_serves_on_cpu():
     done, total = row.split("completed=")[1].split()[0].split("/")
     assert done == total and int(total) > 0
     assert "lora_backend=einsum kv_backend=dense device=cpu" in out.stderr
+
+
+def test_cli_serves_ssm_on_cpu():
+    out = _run_cli("--device", "cpu", "--arch", "mamba2-130m", "--reduced",
+                   "--n-adapters", "6", "--rate", "3", "--duration", "1",
+                   "--max-ctx", "64")
+    assert out.returncode == 0, out.stderr
+    row = out.stdout.strip().splitlines()[-1]
+    assert row.startswith("policy=edgelora n=6 completed=")
+    done, total = row.split("completed=")[1].split()[0].split("/")
+    assert done == total and int(total) > 0
 
 
 def test_cuda_requested_without_cuda_raises():
