@@ -45,12 +45,17 @@ def params_from_numpy(model: Model, tree: Dict) -> Dict:
     its experts' ``up``/``gate``/``down`` [ng, E, d, f] / [ng, E, f, d]
     and a ``shared`` expert's MLP; a Mamba-2 slot's ``ssm`` subtree with
     its ``dt_bias``, ``A_log`` and ``D`` in f32 whatever the model dtype;
-    zamba2's unstacked ``shared_attn`` block. Returns ``model.params``."""
+    zamba2's unstacked ``shared_attn`` block; an encoder-decoder's
+    ``encoder`` and ``decoder`` subtrees (LayerNorm ``scale``/``bias``,
+    the decoder's ``cross`` block, each ``ln_post``), stacked over their
+    layers. Returns ``model.params``."""
     return model.load_params(tree_from_numpy(tree, model.device))
 
 
 def lora_pool_from_numpy(tree: Dict, device: Any = "cpu") -> Dict:
-    """The stacked LoRA pool (or one adapter) as tensors."""
+    """The stacked LoRA pool (or one adapter) as tensors, any tree: the
+    stack's ``layers`` (and ``shared_attn``), or an encoder-decoder's
+    ``encoder``, ``decoder`` and ``cross`` parts, leaves [n, (R,) r, d]."""
     return tree_from_numpy(tree, device)
 
 

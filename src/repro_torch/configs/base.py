@@ -347,12 +347,13 @@ _ALIAS.update({
 })
 
 
-# Architectures the PyTorch port runs so far (one module each under
-# repro_torch/configs/); every other arch id raises until its slice lands.
+# Architectures the PyTorch port runs (one module each under
+# repro_torch/configs/): every id of ARCH_IDS. Any other id raises
+# ``NotImplementedError`` naming them, where the reference's import fails.
 PORTED_ARCHS = ("llama3_8b", "qwen2_0_5b", "llama3_2_3b", "openelm_1_1b",
                 "gemma2_9b", "starcoder2_7b", "chameleon_34b", "dbrx_132b",
                 "llama4_maverick_400b_a17b", "qwen1_5_110b", "mamba2_130m",
-                "zamba2_2_7b")
+                "zamba2_2_7b", "whisper_medium")
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -360,8 +361,8 @@ def get_config(arch: str) -> ModelConfig:
     key = _ALIAS.get(arch, arch.replace("-", "_").replace(".", "_"))
     if key not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch {arch!r} is not yet ported to repro_torch (ported: "
-            f"{', '.join(PORTED_ARCHS)}); see ROADMAP.md queue A")
+            f"arch {arch!r} is not an architecture of repro_torch (ported: "
+            f"{', '.join(PORTED_ARCHS)})")
     mod = importlib.import_module(f"repro_torch.configs.{key}")
     return mod.CONFIG
 

@@ -16,7 +16,8 @@ Runs on ``cuda`` unless ``--device cpu`` is given (no CUDA: it raises).
 ``--reduced`` (the default) is the tiny same-family variant; ``--full``
 the published widths of ``--arch`` (llama3-8b, qwen2-0.5b, llama3.2-3b,
 openelm-1.1b, gemma2-9b, starcoder2-7b, chameleon-34b, dbrx-132b,
-llama4-maverick-400b-a17b, qwen1.5-110b, mamba2-130m, zamba2-2.7b). The
+llama4-maverick-400b-a17b, qwen1.5-110b, mamba2-130m, zamba2-2.7b;
+whisper-medium is refused: the engine's prompts carry no ``frames``). The
 flags are the reference's: all four ``--policy``
 values, ``--kv-backend paged``, ``--prefix-cache`` (which implies the
 paged backend) and ``--prefill-chunk`` serve as there, and the summary

@@ -10,7 +10,8 @@ is accepted as in the reference, but its data pipeline draws a
 vocab × vocab transition matrix (``training/data.py``), which at a
 published vocabulary (128256 or 151936) is 100+ GB: neither package can
 run it. The adapter saves in the reference's ``.npz`` format, so either
-package loads it.
+package loads it. An encoder-decoder arch (whisper-medium) is refused:
+the task pipeline has no ``frames`` for its encoder.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import build_model
+from repro_torch.models.model import require_token_batches
 from repro_torch.training.checkpoint import save_checkpoint
 from repro_torch.training.data import DataConfig, lm_batches
 from repro_torch.training.train import train_loop
@@ -44,6 +46,10 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    require_token_batches(
+        cfg, "launch/train.py",
+        "src/repro/launch/train.py trains on lm_batches, whose batches "
+        "hold tokens only")
     model = build_model(cfg, args.device)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                     batch_size=args.batch_size, seed=args.seed)

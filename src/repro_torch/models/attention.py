@@ -1,6 +1,7 @@
 """Attention: GQA + RoPE (+ QKV bias, QK-norm) + blockwise prefill +
 cached decode over global, sliding-window or chunked-local rings, bf16 or
-int8 (``repro.models.attention``).
+int8; the encoder's bidirectional self-attention and the decoder's cross
+attention of the encoder-decoder family (``repro.models.attention``).
 
 * Full-sequence attention is computed **blockwise with an online
   softmax** in plain PyTorch: the same query/KV block order and f32
@@ -24,6 +25,7 @@ runs its plain version). Both kernel routes keep the softmax
 probabilities in f32 where the plain code rounds them to V's dtype, and
 ``flash_decode`` dequantizes an int8 ring in f32 where the plain code
 rounds it to q's dtype, so in bf16 the two routes differ by rounding.
+Cross attention has one route, plain PyTorch, as the reference's einsums.
 """
 from __future__ import annotations
 
@@ -136,14 +138,16 @@ def mask_fn(kind: str, cfg: ModelConfig):
     """(qpos, kpos) -> bool mask; qpos/kpos broadcast against each other.
     'global' is full causal, 'local' a sliding window of
     ``sliding_window`` positions (with ``chunked_local`` the same-chunk
-    mask instead). The encoder's 'bidir' is not ported yet."""
-    if kind not in ("global", "local"):
-        raise NotImplementedError(
-            f"attention kind {kind!r} is not ported yet (see ROADMAP.md)")
+    mask instead), 'bidir' (the encoder's) every written key."""
+    if kind not in ("global", "local", "bidir"):
+        raise NotImplementedError(f"attention kind {kind!r} is not ported")
     w = cfg.attn.sliding_window
     chunked = cfg.attn.chunked_local
 
     def fn(qpos: torch.Tensor, kpos: torch.Tensor) -> torch.Tensor:
+        if kind == "bidir":
+            return (kpos >= 0).expand(torch.broadcast_shapes(qpos.shape,
+                                                             kpos.shape))
         valid = (kpos >= 0) & (kpos <= qpos)
         if kind == "local":
             if chunked:  # torch's // on integer tensors floors, as JAX's
@@ -182,16 +186,19 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         block_kv: int = 1024,
                         use_kernel: bool = False) -> torch.Tensor:
     """Flash-style attention in plain PyTorch, or with ``use_kernel``
-    the ``flash_prefill`` kernel (which tiles on its own).
+    the ``flash_prefill`` kernel (which tiles on its own; non-causal for
+    'bidir').
 
     q: [B, Sq, H, hd]; k, v: [B, Skv, KH, hd]; qpos: [Sq]; kpos: [Skv].
-    Returns [B, Sq, H, hd]. Causal/local masking from positions.
+    Returns [B, Sq, H, hd]. Causal/local/bidirectional masking from
+    positions.
     """
     mfn = mask_fn(kind, cfg)  # raises for layer kinds not ported
     softcap = cfg.attn.attn_logit_softcap
     if use_kernel:
-        return ops.flash_prefill(q, k, v, qpos=qpos, kpos=kpos, causal=True,
-                                 softcap=softcap, **kernel_window(kind, cfg))
+        return ops.flash_prefill(q, k, v, qpos=qpos, kpos=kpos,
+                                 causal=kind != "bidir", softcap=softcap,
+                                 **kernel_window(kind, cfg))
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -354,3 +361,41 @@ def decode_attention(q: torch.Tensor, cache: Dict, qpos: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bckd->bkgd", p.to(v_cache.dtype), v_cache)
     return out.reshape(b, h, hd)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper's decoder), plain PyTorch as in the reference
+# ---------------------------------------------------------------------------
+
+
+def cross_attention(params: Dict, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                    cfg: ModelConfig, lora: Optional[Dict] = None,
+                    lora_mode: LoRAMode = LoRAMode()) -> torch.Tensor:
+    """x: [B, S, d]; enc_kv: precomputed (k, v) [B, Senc, KH, hd]. The
+    scores are the product in the inputs' dtype, then cast to f32 and
+    scaled (in bf16 they round before the scale, as the reference's);
+    the softmax is in f32."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    lget = (lora or {}).get
+    q = linear({"w": params["wq"]}, x, lget("q"), lora_mode)
+    k, v = enc_kv
+    kh = k.shape[2]
+    qg = q.reshape(b, s, kh, cfg.n_heads // kh, hd)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * hd ** -0.5
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v)
+    return linear({"w": params["wo"]}, out.reshape(b, s, cfg.q_size),
+                  lget("o"), lora_mode)
+
+
+def encode_cross_kv(params: Dict, enc_out: torch.Tensor, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V [B, T, KH, hd] of the encoder output (no
+    LoRA: the reference's cross block adapts q and o only)."""
+    b, t, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = linear({"w": params["wk"]}, enc_out).reshape(b, t, cfg.n_kv_heads, hd)
+    v = linear({"w": params["wv"]}, enc_out).reshape(b, t, cfg.n_kv_heads, hd)
+    return k, v

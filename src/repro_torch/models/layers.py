@@ -7,7 +7,7 @@ through ``repro_torch.core.lora``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +56,26 @@ def rmsnorm(params: Dict[str, torch.Tensor], x: torch.Tensor,
     var = xf.square().mean(-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
     return (xf * (1.0 + params["scale"].float())).to(dt)
+
+
+def layernorm_init(d: int, dtype: torch.dtype, *,
+                   stack: Tuple[int, ...] = (),
+                   device: Any = None) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones((*stack, d), dtype=dtype, device=device),
+            "bias": torch.zeros((*stack, d), dtype=dtype, device=device)}
+
+
+def layernorm(params: Dict[str, torch.Tensor], x: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """LayerNorm with its statistics in f32. The variance is the
+    population variance, as ``jnp.var``: torch's default is the sample
+    variance."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * params["scale"].float() + params["bias"].float()).to(dt)
 
 
 def activation(name: str):

@@ -1,4 +1,5 @@
-"""Model API, dense, MoE, SSM and hybrid decoders (``repro.models.model``).
+"""Model API, dense, MoE, SSM and hybrid decoders and the encoder-decoder
+family (``repro.models.model``).
 
 ``Model`` is an ``nn.Module`` whose ``weights`` child mirrors the JAX
 param tree path for path (``weights.layers.slot0.attn.wq`` is
@@ -13,7 +14,11 @@ carrying per-request adapter slots; training and the learned router
 call ``forward``. ``attn_kernel`` (a field, set at construction) routes
 every step's attention through the ``flash_prefill`` / ``flash_decode``
 kernels instead of the plain PyTorch code; on CPU tensors the kernel
-wrappers run their plain versions.
+wrappers run their plain versions. An encoder-decoder config (whisper)
+takes ``frames`` [B, n_frames, d_model] beside ``tokens`` in ``forward``
+and ``prefill`` (``models/encdec.py``); it has no paged, suffix or chunk
+step, as in the reference, and the serving engine refuses it
+(``require_token_batches``).
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import LoRAMode
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import (init_device, rmsnorm,
                                       truncated_normal_init, unembed)
 
@@ -43,17 +48,19 @@ def check_supported(cfg: ModelConfig) -> None:
     on every ``moe_layer_period``-th layer); the SSM family (mamba2:
     Mamba-2 blocks only, ``layer_pattern ('none',)``) and the hybrid
     family (zamba2: Mamba-2 slots with a weight-tied attention + MLP
-    block after every ``shared_attn_every``)."""
+    block after every ``shared_attn_every``); the encoder-decoder family
+    (whisper: family ``audio``, an encoder over frame embeddings, no
+    RoPE). Attention without RoPE skips it, as in the reference."""
     a = cfg.attn
     recurrent = cfg.family == "ssm" or bool(cfg.shared_attn_every)
+    families = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
     unported = {
-        "family not in ('dense', 'vlm', 'moe', 'ssm', 'hybrid')":
-            cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"),
+        f"family not in {families}": cfg.family not in families,
         "attention kinds other than global/local": any(
             k not in ("global", "local") for k in a.layer_pattern)
             and not (cfg.family == "ssm" and a.layer_pattern == ("none",)),
-        "rope=False": not a.rope,
-        "encoder": cfg.encoder is not None,
+        "an encoder outside the audio family, or the audio family "
+        "without one": (cfg.encoder is None) == (cfg.family == "audio"),
         "an ssm config outside the ssm/hybrid stacks": (
             (cfg.ssm is None) == recurrent),
         # the reference's shared block has no post-norms
@@ -63,8 +70,21 @@ def check_supported(cfg: ModelConfig) -> None:
     found = [k for k, v in unported.items() if v]
     if found:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(found)} not yet ported to repro_torch "
-            "(later slices, see ROADMAP.md)")
+            f"{cfg.name}: {', '.join(found)} not ported to repro_torch")
+
+
+def require_token_batches(cfg: ModelConfig, caller: str,
+                          reference: str) -> None:
+    """Raise for an encoder-decoder config where ``caller`` feeds batches
+    of tokens alone: its encoder needs ``frames`` too. ``reference``
+    says where the JAX package fails the same way."""
+    if cfg.encoder is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {caller} feeds token batches only, and an "
+            f"encoder-decoder model also needs 'frames' [B, "
+            f"{cfg.encoder.n_frames}, {cfg.d_model}] (the reference fails "
+            f"the same way: {reference}, then its Model reads "
+            f"batch['frames'])")
 
 
 class ParamTree(nn.Module):
@@ -120,7 +140,11 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             params["lm_head"] = truncated_normal_init(
                 generator, (cfg.d_model, cfg.vocab_size), 1.0, dt)
-        params.update(transformer.init_stack(generator, cfg, dt))
+        if cfg.encoder is not None:
+            params["encoder"] = encdec.init_encoder(generator, cfg, dt)
+            params["decoder"] = encdec.init_decoder(generator, cfg, dt)
+        else:
+            params.update(transformer.init_stack(generator, cfg, dt))
         return params
 
     def init(self, generator: torch.Generator) -> Dict:
@@ -159,6 +183,9 @@ class Model(nn.Module):
     def init_lora(self, generator: torch.Generator,
                   n_slots: Optional[int] = None,
                   dtype: torch.dtype = torch.float32) -> Dict:
+        if self.cfg.encoder is not None:
+            return encdec.init_encdec_lora(generator, self.cfg,
+                                           n_slots=n_slots, dtype=dtype)
         return transformer.init_lora_stack(generator, self.cfg,
                                            n_slots=n_slots, dtype=dtype)
 
@@ -176,6 +203,10 @@ class Model(nn.Module):
         return x
 
     def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
+        """The head: RMSNorm ``final_norm``, then the unembedding. An
+        encoder-decoder's hidden states come LayerNormed (the decoder's
+        ``ln_post``) and are normed a second time here, as in the
+        reference."""
         cfg = self.cfg
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
@@ -191,12 +222,21 @@ class Model(nn.Module):
                 lora_mode: LoRAMode = LoRAMode(),
                 opts: Optional[Dict] = None, *, attn_kernel: bool
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: {'tokens': [B, S]}. Returns (logits [B, S, V], aux
-        losses). ``attn_kernel`` is the caller's choice, not the model's
-        field: training differentiates the plain attention (the kernels
-        have no backward), scoring may take the kernel."""
+        """batch: {'tokens': [B, S]} (+ 'frames': [B, T, d] for an
+        encoder-decoder). Returns (logits [B, S, V], aux losses; none for
+        an encoder-decoder). ``attn_kernel`` is the caller's choice, not
+        the model's field: training differentiates the plain attention
+        (the kernels have no backward), scoring may take the kernel."""
         tokens = batch["tokens"]
         x = self.embed(params, tokens)
+        if self.cfg.encoder is not None:
+            enc_out = encdec.encode(params["encoder"], batch["frames"],
+                                    self.cfg, lora, lora_mode, opts,
+                                    attn_kernel=attn_kernel)
+            h = encdec.decode_full(params["decoder"], x, enc_out, self.cfg,
+                                   lora, lora_mode, opts,
+                                   attn_kernel=attn_kernel)
+            return self.logits(params, h), {}
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         h, aux = transformer.forward_stack(params, x, self.cfg, positions,
                                            lora, lora_mode, opts,
@@ -207,8 +247,16 @@ class Model(nn.Module):
     # serving: cache, prefill, decode
     # ------------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int) -> Dict:
-        return transformer.init_cache(self.cfg, batch, max_len, self.dtype,
+    def init_cache(self, batch: int, max_len: int,
+                   enc_frames: Optional[int] = None) -> Dict:
+        """An encoder-decoder's cache also holds the cross K/V of
+        ``enc_frames`` frames (default: the config's ``n_frames``)."""
+        cfg = self.cfg
+        if cfg.encoder is not None:
+            return encdec.init_decoder_cache(
+                cfg, batch, max_len, enc_frames or cfg.encoder.n_frames,
+                self.dtype, self.device)
+        return transformer.init_cache(cfg, batch, max_len, self.dtype,
                                       self.device)
 
     def prefill(self, params: Dict, batch: Dict[str, torch.Tensor],
@@ -223,19 +271,35 @@ class Model(nn.Module):
         ``lengths`` [B]: real prompt lengths of right-padded rows —
         logits come from position length-1 **per row**, and cache
         entries past each row's prompt are invalidated.
+
+        An encoder-decoder encodes ``batch['frames']``, fills the cross
+        K/V from the encoder output, then runs the decoder over the
+        prompt into the self ring.
         """
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = self.embed(params, tokens)
-        seq_mask = None
-        if lengths is not None:
-            seq_mask = (torch.arange(s, device=tokens.device)[None, :]
-                        < lengths[:, None])
-        positions = torch.arange(s, device=tokens.device)
-        h, _, cache = transformer.forward_stack(
-            params, x, self.cfg, positions, lora, lora_mode, opts,
-            cache=cache, seq_mask=seq_mask, lengths=lengths,
-            attn_kernel=self.attn_kernel)
+        if self.cfg.encoder is not None:
+            enc_out = encdec.encode(params["encoder"], batch["frames"],
+                                    self.cfg, lora, lora_mode, opts,
+                                    attn_kernel=self.attn_kernel)
+            encdec.fill_cross_cache(params["decoder"], enc_out, self.cfg,
+                                    cache)
+            h, _ = encdec.decode_full(
+                params["decoder"], x, enc_out, self.cfg, lora, lora_mode,
+                opts, self_cache=cache["self"],
+                cross_kv=(cache["cross_k"], cache["cross_v"]),
+                attn_kernel=self.attn_kernel)
+        else:
+            seq_mask = None
+            if lengths is not None:
+                seq_mask = (torch.arange(s, device=tokens.device)[None, :]
+                            < lengths[:, None])
+            positions = torch.arange(s, device=tokens.device)
+            h, _, cache = transformer.forward_stack(
+                params, x, self.cfg, positions, lora, lora_mode, opts,
+                cache=cache, seq_mask=seq_mask, lengths=lengths,
+                attn_kernel=self.attn_kernel)
         if lengths is not None:
             last = h[torch.arange(b, device=h.device), lengths.long() - 1]
             cache = _invalidate_past(cache, lengths)
@@ -266,6 +330,7 @@ class Model(nn.Module):
         """
         from repro_torch.serving import kvpool  # deferred: engine→models cycle
 
+        self._refuse_encoder("prefill_suffix")
         b, s = tokens.shape
         x = self.embed(params, tokens)
         positions = prefix_len + torch.arange(s, device=tokens.device)
@@ -302,6 +367,7 @@ class Model(nn.Module):
         ring index == position and the prefix needs no validity mask.
         Returns (last-token logits [B, V], mini cache).
         """
+        self._refuse_encoder("prefill_suffix_dense")
         b, s = tokens.shape
         x = self.embed(params, tokens)
         positions = prefix_len + torch.arange(s, device=tokens.device)
@@ -331,6 +397,11 @@ class Model(nn.Module):
         per-slot positions. Returns (logits [B, V], cache); the cache is
         updated in place."""
         x = self.embed(params, tokens)
+        if self.cfg.encoder is not None:
+            h, cache = encdec.decode_step(params["decoder"], x, cache,
+                                          self.cfg, pos, lora, lora_mode,
+                                          attn_kernel=self.attn_kernel)
+            return self.logits(params, h), cache
         h, cache = transformer.decode_stack(params, x, cache, self.cfg, pos,
                                             lora, lora_mode,
                                             attn_kernel=self.attn_kernel)
@@ -360,12 +431,21 @@ class Model(nn.Module):
         """
         from repro_torch.serving import kvpool  # deferred: engine→models cycle
 
+        self._refuse_encoder("decode_step_paged")
         view = kvpool.paged_view(cache, tables, lengths, prompt_lens,
                                  pad_lens, meta, page_gather=page_gather)
         logits, view = self.decode_step(params, tokens, view, pos, lora,
                                         lora_mode)
         cache = kvpool.scatter_decode(cache, view, tables, pos, meta)
         return logits, cache
+
+    def _refuse_encoder(self, step: str) -> None:
+        """The paged, suffix and chunk steps are the decoder-only
+        stacks': nothing in the reference reaches them with an
+        encoder-decoder config."""
+        if self.cfg.encoder is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {step} has no encoder-decoder path")
 
 
 def _round_to(value: float, dtype: torch.dtype) -> float:

@@ -82,6 +82,7 @@ from repro_torch.core.slots import Request, Slot, SlotManager, SlotState
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ops import paged_gather
 from repro_torch.models import build_model
+from repro_torch.models.model import require_token_batches
 from repro_torch.serving import kvpool as kvlib
 from repro_torch.serving.kvpool import PagedKVPool
 from repro_torch.serving.metrics import ServingSummary, summarize
@@ -144,8 +145,13 @@ POLICIES = ("edgelora", "edgelora_no_aas", "llamacpp", "dlora")
 
 def _check_engine_config(cfg: ModelConfig, ecfg: EngineConfig) -> str:
     """Validate the policy and the KV backend; returns the KV backend
-    ('dense' or 'paged'). Model features outside the ported slices raise
-    in ``models.model.check_supported``."""
+    ('dense' or 'paged'). An encoder-decoder config is refused: the
+    engine's prompts are tokens alone. Model features outside the ported
+    slices raise in ``models.model.check_supported``."""
+    require_token_batches(
+        cfg, "the serving engine",
+        "src/repro/serving/engine.py:337 calls model.prefill(params, "
+        "{'tokens': tokens}, ...)")
     if ecfg.policy not in POLICIES:
         raise ValueError(f"unknown policy {ecfg.policy!r} (expected one "
                          f"of {', '.join(POLICIES)})")

@@ -1503,3 +1503,185 @@ def test_cuda_ssm_engine_steps_make_no_host_sync(dev, arch, kv, step):
         shared
     assert pg.launches["paged_gather_pages"] == (
         2 if kv == "paged" and shared else 0)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder family: whisper-medium (hd 64, GQA 1, 1500 frames)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_prefill_whisper_layer(dev, dtype, causal):
+    """``flash_prefill`` at whisper's layer, [2, 1500, 16/16, 64]: GQA 1
+    at head dim 64, and 1500 positions, no multiple of any tile, so the
+    last query and key tiles are ragged; causal (the decoder's
+    self-attention) and not (the encoder's: every key visible), with
+    explicit positions and without."""
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator(device=dev).manual_seed(64)
+    b, s, h = 2, 1500, 16
+    q, k, v = (torch.randn(b, s, h, 64, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    fp.reset_launches()
+    got = fp.flash_prefill(q, k, v, qpos=pos, kpos=pos, causal=causal)
+    want = fp.flash_prefill_plain(q, k, v, qpos=pos, kpos=pos, causal=causal)
+    again = fp.flash_prefill(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fp.launches == {"flash_prefill": 2}
+    _attn_close(got, want, dtype)
+    assert torch.equal(got, again)
+    if not causal:   # the first position sees the last key
+        first = fp.flash_prefill_plain(q, k, v, causal=True)[:, 0]
+        assert (want[:, 0].float() - first.float()).abs().max() > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c", [(8, 448), (3, 37)])
+def test_cuda_flash_decode_whisper_layer(dev, dtype, b, c):
+    """``flash_decode`` at whisper's decoder layer, q [B, 16, 64] over a
+    ring of 16 kv heads (GQA 1, head dim 64): part-filled rows and an
+    idle last row (the mean of V)."""
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device=dev).manual_seed(65)
+    q = torch.randn(b, 16, 64, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, c, 16, 64, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, c, 16, 64, generator=gen, device=dev).to(dtype)
+    idx = torch.arange(c, device=dev, dtype=torch.int32)
+    depth = torch.randint(1, c + 1, (b,), generator=gen, device=dev)
+    kv_pos = torch.where(idx[None] < depth[:, None], idx[None], -1).to(
+        torch.int32)
+    kv_pos[-1] = -1
+    q_pos = (depth - 1).to(torch.int32)
+    da.reset_launches()
+    got = da.flash_decode(q, k, v, kv_pos, q_pos)
+    want = da.flash_decode_plain(q, k, v, kv_pos, q_pos)
+    torch.cuda.synchronize()
+    assert da.launches == {"flash_decode": 1}
+    _attn_close(got, want, dtype)
+    _attn_close(got[-1], v[-1].float().mean(0), dtype)
+
+
+def _whisper(dev, dtype="float32", **kw):
+    """Reduced whisper on the card: (config, params, a pool of 4 with
+    nonzero B, frames, tokens, right-padded lengths)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(reduced_config(get_config("whisper-medium")),
+                              dtype=dtype, **kw)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg, dev)
+    params = model.init(gen)
+    pool = model.init_lora(gen, n_slots=4)
+
+    def draw_b(tree):
+        for key, node in tree.items():
+            if key == "B":
+                node.normal_(0.0, 0.02, generator=gen)
+            elif isinstance(node, dict):
+                draw_b(node)
+
+    draw_b(pool)
+    b = 3
+    fr = torch.randn(b, cfg.encoder.n_frames, cfg.d_model, generator=gen,
+                     device=dev).to(model.dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (b, 16), generator=gen,
+                           device=dev, dtype=torch.int32)
+    lengths = torch.tensor([16, 9, 5], dtype=torch.int32, device=dev)
+    return cfg, params, pool, fr, tokens, lengths
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_kernel_route_matches_plain_route(dev):
+    """Reduced whisper in f32 on the card: a prefill (right-padded rows,
+    mixed adapters through the SGMV kernels) and two decode steps with
+    the attention kernels (the encoder's non-causal ``flash_prefill``,
+    the decoder's causal one, ``flash_decode``) against the plain
+    attention code, within 1e-4 of max|logit|; each decode step runs on
+    both routes from the plain route's cache and tokens. Launches: two
+    ``flash_prefill`` a layer per prefill (encoder and decoder), one
+    ``flash_decode`` a layer per decode step; each SGMV kernel once per
+    LoRA call (encoder 5, decoder 5 and cross 2 a layer in a prefill;
+    decoder and cross, 7 a layer, in a decode step)."""
+    from repro_torch.core.lora import LoRAMode
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models import build_model
+    cfg, params, pool, fr, tokens, lengths = _whisper(dev)
+    mode = LoRAMode("batched", torch.tensor([2, 0, 3], dtype=torch.int32,
+                                            device=dev), cfg.lora.scale,
+                    "sgmv")
+    models = {name: build_model(cfg, dev, attn_kernel=name == "kernel")
+              for name in ("plain", "kernel")}
+    nl = cfg.n_layers
+    logits, launches, out = {}, {}, {}
+    for name, m in models.items():
+        for mod in (sgmv, da, fp):
+            mod.reset_launches()
+        out[name] = m.prefill(params, {"tokens": tokens, "frames": fr},
+                              m.init_cache(3, 32), pool, mode,
+                              lengths=lengths)
+        torch.cuda.synchronize()
+        launches[name] = (fp.launches["flash_prefill"],
+                          sgmv.launches["sgmv_shrink"])
+        logits[name] = [out[name][0]]
+    assert launches == {"plain": (0, 12 * nl), "kernel": (2 * nl, 12 * nl)}
+    cache = out["plain"][1]
+    nxt, pos = torch.argmax(logits["plain"][0], -1).int(), lengths.clone()
+    for _ in range(2):
+        for name, m in models.items():
+            c = {"self": {n: t.clone() for n, t in cache["self"].items()},
+                 "cross_k": cache["cross_k"], "cross_v": cache["cross_v"]}
+            da.reset_launches()
+            sgmv.reset_launches()
+            ld, c = m.decode_step(params, nxt, c, pos, pool, mode)
+            torch.cuda.synchronize()
+            assert da.launches["flash_decode"] == (
+                nl if name == "kernel" else 0)
+            assert sgmv.launches["sgmv_expand"] == 7 * nl
+            logits[name].append(ld)
+            if name == "plain":
+                cache = c
+        nxt, pos = torch.argmax(logits["plain"][-1], -1).int(), pos + 1
+    for got, want in zip(logits["kernel"], logits["plain"]):
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_decode_step_makes_no_host_sync(dev):
+    """A bf16 whisper decode step on the kernels (SGMV, ``flash_decode``)
+    under ``torch.cuda.set_sync_debug_mode("error")``, equal to the same
+    step run without it."""
+    from repro_torch.core.lora import LoRAMode
+    from repro_torch.models import build_model
+    cfg, params, pool, fr, tokens, lengths = _whisper(dev, "bfloat16")
+    model = build_model(cfg, dev, attn_kernel=True)
+    mode = LoRAMode("batched", torch.tensor([2, 0, 3], dtype=torch.int32,
+                                            device=dev), cfg.lora.scale,
+                    "sgmv")
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": tokens,
+                                               "frames": fr},
+                                      model.init_cache(3, 32), pool, mode,
+                                      lengths=lengths)
+        nxt = torch.argmax(logits, -1).int()
+
+        def step():
+            c = {"self": {n: t.clone() for n, t in cache["self"].items()},
+                 "cross_k": cache["cross_k"], "cross_v": cache["cross_v"]}
+            return model.decode_step(params, nxt, c, lengths, pool, mode)[0]
+
+        want = step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -186,24 +186,29 @@ def _summary_json(summary):
 
 
 def _unported_cfg(feature):
-    """A config with one feature outside the ported slices (whisper's,
-    the encoder-decoder family)."""
+    """A config the engine refuses: whisper (the encoder-decoder family,
+    whose prefill needs frames the engine's prompts lack), an encoder
+    tower on a decoder, a decoder stack of the encoder's bidirectional,
+    position-free attention, and the audio family without an
+    encoder."""
     _, tcfg = _configs()
     if feature == "whisper":
         return reduced_config(get_config("whisper-medium"))
     if feature == "encoder":   # whisper's encoder tower
         return dataclasses.replace(tcfg, encoder=EncoderConfig(n_layers=2))
-    if feature == "rope":   # whisper's decoder: learned positions
+    if feature == "rope":   # whisper's encoder attention as a decoder kind
         return dataclasses.replace(tcfg, attn=dataclasses.replace(
-            tcfg.attn, rope=False))
+            tcfg.attn, rope=False, layer_pattern=("bidir",)))
     return dataclasses.replace(tcfg, family="audio")
 
 
 @pytest.mark.parametrize("change,msg", [
-    ("whisper", "arch 'whisper-medium'"),
-    ("encoder", "encoder"),
-    ("rope", "rope=False"),
-    ("audio", "family not in"),
+    ("whisper", "whisper-medium: the serving engine feeds token batches "
+                "only, and an encoder-decoder model also needs 'frames'"),
+    ("encoder", "the serving engine feeds token batches only, and an "
+                "encoder-decoder model also needs 'frames'"),
+    ("rope", "attention kinds other than global/local"),
+    ("audio", "the audio family without one"),
 ])
 def test_unported_features_raise(change, msg):
     with pytest.raises(NotImplementedError, match=msg):

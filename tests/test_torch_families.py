@@ -123,15 +123,14 @@ def test_get_config_resolves_arch(arch):
 
 def test_check_supported_lets_the_variants_through():
     """Local layers, chunked-local masks, QK-norm, both softcaps, int8 KV,
-    post-norms and scaled embeddings; the VLM family without an
-    encoder."""
+    post-norms and scaled embeddings; the VLM family without an encoder;
+    attention without RoPE (the reference's ``project_qkv`` skips it)."""
     _, tcfg = configs("gemma2-9b")
     check_supported(_apply(tcfg, {"attn.chunked_local": True,
                                   "attn.qk_norm": True,
                                   "attn.kv_cache_quant": True}))
     assert get_config("chameleon-34b").family == "vlm"
-    with pytest.raises(NotImplementedError, match="rope=False"):
-        check_supported(_apply(tcfg, {"attn.rope": False}))
+    check_supported(_apply(tcfg, {"attn.rope": False}))
 
 
 # ---------------------------------------------------------------------------

@@ -230,9 +230,9 @@ def test_forward_matches_reference(pair):
 
 
 def test_encoder_config_raises():
-    """``Model.forward`` is the dense decoder's: an encoder config is
-    refused where the model is built, as ``check_supported`` refuses
-    every unported feature."""
+    """An encoder on a decoder-only family is refused where the model is
+    built: ``check_supported`` holds an encoder to the audio family
+    (whisper's encoder-decoder stack)."""
     cfg = dataclasses.replace(reduced_config(get_config("llama3-8b")),
                               encoder=EncoderConfig(n_layers=2))
     with pytest.raises(NotImplementedError, match="encoder"):
