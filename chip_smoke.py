@@ -248,6 +248,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     their bound; two LoRA train steps (loss, grad norm, ms, peak memory;
     no kernel launched); the engine's refusal (no ``frames``).
 
+15. The distributed layer and ``remat`` (after phase 14; no kernel runs
+    on these paths). (a) llama3-8b LoRA train steps at full width and
+    depth, B 1, on the plain route, with ``remat`` off and on at the
+    longest S of 4096, 2048, 1024 that fits without it (an out-of-memory
+    S is recorded), then with ``remat`` at 4096: loss, grad norm, AdamW
+    moments and adapter bit-equal (else within ``REMAT_TOL``, recorded),
+    peak memory and the median ms of 3 warm steps of each. (b) qwen2-0.5b
+    at full width and depth, bf16, plain route, prefill [8, 512] and a
+    decode step over a 4096 ring: the dry-run's arguments on a one-rank fake mesh against
+    the card's allocation growth for the same arguments (within 1 %),
+    ``launch/analysis.step_cost`` on the card's tensors equal to its
+    count on fake copies, each step's device time at least its largest
+    one-GPU roofline term. (c) ``launch/dryrun.run_combo`` of decode_32k
+    at full depth on the fake 16x16 mesh for dbrx-132b, llama4-maverick
+    and qwen1.5-110b (all ``ok``; args/dev, dominant term with and
+    without the replicate fallback's gathers, trace s), in this process;
+    after the first arch, one that would take the phase past 90 s is
+    skipped and recorded so.
+
 Each serve's kernel launch counts are zeroed just before it and read just
 after; every kernel its path runs must have launched.
 
@@ -259,6 +278,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -3959,6 +3979,317 @@ def whisper_phase(torch, dev):
     return {"whisper-medium": rec}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the train step's remat at full width and depth, the dry-run's
+# counts against the card, and the dry-run at full depth on the fake
+# 16x16 mesh
+# ---------------------------------------------------------------------------
+
+# llama3-8b LoRA train step, B 1: the longest of these S at which the step
+# without remat fits; remat runs at that S and, if it was cut, at 4096
+# (the dry-run's train_4k length)
+REMAT_SEQS = (4096, 2048, 1024)
+# warm steps timed at each S (their median is recorded)
+REMAT_TIMED = 3
+# remat on vs off, if not bit-equal: relative to max|value|
+REMAT_TOL = 1e-6
+# qwen2-0.5b steps the dry-run's counts are held at: prefill [B, S] and a
+# decode step of B rows over a ring of COUNT_DECODE_CTX
+COUNT_PREFILL = (8, 512)
+COUNT_DECODE_CTX = 4096
+# the fake-mesh arguments' bytes against the card's allocation growth
+ARG_BYTES_TOL = 0.01
+# decode_32k at full depth on the fake 16x16 mesh: the archs the card
+# runs at partial depth (phases 12 and 13)
+DRYRUN_ARCHS = ("dbrx_132b", "llama4_maverick_400b_a17b", "qwen1_5_110b")
+DRYRUN_SHAPE = "decode_32k"
+# phase 15's wall budget: (c) keeps its first arch, and runs the next only
+# while the phase stays inside it at the trace time a layer the archs
+# before it took
+PHASE15_BUDGET_S = 90.0
+
+
+def dryrun_phase(phase_started):
+    """Phase 15(c): each arch's decode_32k combo at full depth on the fake
+    16x16 mesh, in this process (CPU only: fake tensors on a fake process
+    group), must be ``ok``; per arch its args/dev, dominant term, the
+    share of its collective bytes from the replicate fallback, and trace
+    seconds. After the first arch, an arch whose trace would take phase
+    15 past PHASE15_BUDGET_S (at the seconds a layer the archs before it
+    took) is skipped and recorded so."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    res, skipped, traced_s, traced_layers = {}, [], 0.0, 0
+    for arch in DRYRUN_ARCHS:
+        spent = time.perf_counter() - phase_started
+        layers = get_config(arch).n_layers
+        if res and spent + traced_s / traced_layers * layers > (
+                PHASE15_BUDGET_S):
+            skipped.append(arch)
+            continue
+        r = dryrun.run_combo(arch, DRYRUN_SHAPE, save=False, verbose=False)
+        check(r["status"] == "ok", f"dry-run {arch}: {r}")
+        traced_s += r["trace_s"]
+        traced_layers += layers
+        res[arch] = dict(
+            args_per_device_gb=r["arg_bytes_per_device"] / 1e9,
+            dominant=r["dominant"],
+            dominant_without_fallback=r["dominant_without_fallback"],
+            collective_fallback_share=r["collective_fallback_share"],
+            trace_s=r["trace_s"], roofline=r["roofline"], flops=r["flops"],
+            hbm_bytes=r["hbm_bytes"],
+            collective_bytes=r["collectives"]["total"],
+            replicated_ops=r["replicated_ops"], torch=r["torch"])
+        log(f"dry-run {arch} x {DRYRUN_SHAPE} x 16x16 (full depth, torch "
+            f"{r['torch']}): args/dev "
+            f"{res[arch]['args_per_device_gb']:.2f} GB, dominant "
+            f"{r['dominant']} ({r['dominant_without_fallback']} without "
+            f"the fallback's {100 * r['collective_fallback_share']:.1f} % "
+            f"of the collective bytes), trace {r['trace_s']:.1f}s")
+    if skipped:
+        log(f"dry-run: {skipped} skipped, phase 15 at "
+            f"{time.perf_counter() - phase_started:.1f}s of its "
+            f"{PHASE15_BUDGET_S:.0f}s")
+    res["skipped"] = skipped
+    return res
+
+
+def _tree_equal(torch, a, b):
+    from repro_torch.training.optimizer import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def _tree_rel_err(torch, a, b):
+    from repro_torch.training.optimizer import tree_leaves
+    return max(float((x.double() - y.double()).abs().max())
+               / max(float(y.double().abs().max()), 1e-30)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def remat_rows(torch, dev):
+    """Phase 15(a): llama3-8b LoRA train steps (all 32 layers, B 1) on the
+    same inputs with remat off and on, at the longest of REMAT_SEQS the
+    step without remat fits: loss, grad norm, the AdamW moments and the
+    updated adapter equal (bit for bit, else within REMAT_TOL, recorded),
+    peak memory and the median warm ms of each; one remat step at
+    REMAT_SEQS[0] if that S was cut."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import optimizer, train
+
+    cfg = get_config("llama3-8b")
+    check(cfg.n_layers == 32 and cfg.d_model == 4096,
+          "not the full llama3-8b config")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    model = build_model(cfg, dev)
+    params = model.init(gen)
+    prepare_weights(torch, cfg, params, gen)
+    lora = model.init_lora(gen)
+    _draw_b(lora, gen)
+    tokens = torch.randint(0, DATA_VOCAB, (1, REMAT_SEQS[0] + 1),
+                           generator=gen, device=dev, dtype=torch.int32)
+    def step(s, remat):
+        """The step 1 + REMAT_TIMED times on the same state and batch (the
+        first call sets up cuBLAS and checkpointing and grows the
+        allocator's pool: seconds); the median ms of the timed calls,
+        peak memory over all."""
+        fn = train.make_train_step(model, remat=remat, peak_lr=1e-3,
+                                   warmup=1, total_steps=4)
+        state = train.TrainState(params, lora, optimizer.adamw_init(lora))
+        batch = {"tokens": tokens[:, :s + 1]}
+        _release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        fn(state, batch)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(REMAT_TIMED):
+            t0 = time.perf_counter()
+            new, met = fn(state, batch)
+            loss = float(met["loss"])
+            times.append(1e3 * (time.perf_counter() - t0))
+        row = dict(seq=s, remat=remat, loss=loss,
+                   grad_norm=float(met["grad_norm"]),
+                   ms=statistics.median(times), ms_all=times,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=_counts())
+        check(loss == loss and 0 < row["grad_norm"] < 1e9,
+              f"remat step {row}")
+        check(not any(row["launches"].values()),
+              f"a train step launched kernels: {row['launches']}")
+        return new, met, row
+
+    res = dict(rows=[], oom=[])
+    for s in REMAT_SEQS:
+        try:
+            off = step(s, False)
+            break
+        except torch.cuda.OutOfMemoryError:
+            res["oom"].append(s)
+            _release(torch)
+    else:
+        raise RuntimeError("chip_smoke: no llama3-8b train step without "
+                           f"remat fits at S in {REMAT_SEQS}")
+    on = step(off[2]["seq"], True)
+    res["rows"] += [off[2], on[2]]
+    bit = (torch.equal(off[1]["loss"], on[1]["loss"])
+           and torch.equal(off[1]["grad_norm"], on[1]["grad_norm"])
+           and _tree_equal(torch, off[0].lora, on[0].lora)
+           and _tree_equal(torch, off[0].opt.mu, on[0].opt.mu)
+           and _tree_equal(torch, off[0].opt.nu, on[0].opt.nu))
+    res["bit_equal"] = bit
+    if not bit:
+        res["rel_err"] = max(
+            _tree_rel_err(torch, off[0].lora, on[0].lora),
+            _tree_rel_err(torch, off[0].opt.mu, on[0].opt.mu),
+            _tree_rel_err(torch, off[0].opt.nu, on[0].opt.nu),
+            abs(on[2]["loss"] - off[2]["loss"]) / abs(off[2]["loss"]),
+            abs(on[2]["grad_norm"] - off[2]["grad_norm"])
+            / off[2]["grad_norm"])
+        check(res["rel_err"] <= REMAT_TOL,
+              f"remat on vs off: {res['rel_err']} > {REMAT_TOL}")
+    del off, on
+    if res["rows"][0]["seq"] != REMAT_SEQS[0]:
+        res["rows"].append(step(REMAT_SEQS[0], True)[2])
+    for r in res["rows"]:
+        log(f"llama3-8b LoRA train step S={r['seq']} remat={r['remat']}: "
+            f"{r['ms']:.1f} ms, peak {r['peak_gb']:.2f} GB, loss "
+            f"{r['loss']:.4f}, grad norm {r['grad_norm']:.4f}")
+    log(f"remat on vs off: {'bit-equal' if bit else res.get('rel_err')}; "
+        f"without remat out of memory at S {res['oom']}")
+    del model, params, lora, tokens
+    _release(torch)
+    return res
+
+
+def count_rows(torch, dev):
+    """Phase 15(b): qwen2-0.5b (full width and depth, bf16, plain route)
+    prefill [8, 512] and a decode step over a 4096 ring. The dry-run's
+    arguments on a one-rank fake mesh against the card's allocation
+    growth for the same arguments (within ARG_BYTES_TOL); ``step_cost``
+    on the card's tensors equal to ``step_cost`` on fake copies; each
+    step's device time at least its largest one-GPU roofline term."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core.lora import LoRAMode
+    from repro_torch.launch import dryrun, mesh as M
+    from repro_torch.launch.analysis import step_cost
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen2-0.5b")
+    check(cfg.n_layers == 24 and cfg.d_model == 896,
+          "not the full qwen2-0.5b config")
+    b, s = COUNT_PREFILL
+    shapes = {"prefill": InputShape("prefill", s, b, "prefill"),
+              "decode": InputShape("decode", COUNT_DECODE_CTX, b, "decode")}
+    mesh = M.make_mesh((1, 1), ("data", "model"))
+    try:
+        with dryrun.traced(mesh) as rec:
+            with rec["fake"]:
+                fake = {k: dryrun.input_specs(cfg, sh, mesh)
+                        for k, sh in shapes.items()}
+            predicted = {k: dryrun._arg_bytes_per_device(kw, mesh)
+                         for k, (_, kw) in fake.items()}
+    finally:
+        M.release_mesh()
+    del fake
+
+    gen = torch.Generator(device=dev).manual_seed(151)
+    model = build_model(cfg, dev)
+    _release(torch)
+    base = torch.cuda.memory_allocated()
+    params = model.init(gen)
+    pool = model.init_lora(gen, n_slots=cfg.lora.max_resident,
+                           dtype=torch.bfloat16)
+    shared = torch.cuda.memory_allocated() - base
+    prepare_weights(torch, cfg, params, gen)
+    _draw_b(pool, gen)
+    sc = cfg.lora.scale
+
+    def run(*a, kind):
+        mode = LoRAMode("batched", a[-1], sc, "einsum")
+        if kind == "prefill":
+            return model.prefill(a[0], a[2], a[3], a[1], mode)
+        return model.decode_step(a[0], a[2], a[3], a[4], a[1], mode)
+
+    res = {}
+    for kind, sh in shapes.items():
+        before = torch.cuda.memory_allocated()
+        cache = model.init_cache(b, sh.seq_len)
+        slots = torch.arange(b, device=dev, dtype=torch.int32) % (
+            cfg.lora.max_resident)
+        if kind == "prefill":
+            tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            args = (params, pool, {"tokens": tokens}, cache, slots)
+        else:
+            tokens = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            pos = torch.full((b,), sh.seq_len - 1, device=dev,
+                             dtype=torch.int32)
+            args = (params, pool, tokens, cache, pos, slots)
+        grown = shared + torch.cuda.memory_allocated() - before
+        row = dict(kind=kind, shape=[b, sh.seq_len], arg_bytes=grown,
+                   predicted_arg_bytes=predicted[kind])
+        check(abs(predicted[kind] - grown) <= ARG_BYTES_TOL * grown,
+              f"{kind}: the dry-run's {predicted[kind]} argument bytes vs "
+              f"{grown} allocated")
+        with torch.no_grad():
+            real = step_cost(run, *args, kind=kind)
+            # the step's own small tensors (positions, masks) are real:
+            # let them meet the fake ones
+            with FakeTensorMode(allow_non_fake_inputs=True) as fm:
+                fargs = tree_map(fm.from_tensor, args)
+            fcount = step_cost(run, *fargs, kind=kind)
+            for key in ("mxu_flops", "vpu_flops", "bytes"):
+                check(real[key] == fcount[key],
+                      f"{kind}: step_cost {key} on the card {real[key]} vs "
+                      f"fake {fcount[key]}")
+            for _ in range(2):
+                run(*args, kind=kind)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                run(*args, kind=kind)
+            end.record()
+            torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 5
+        terms = M.roofline_terms(real["mxu_flops"], real["bytes"], 0.0, 1)
+        top = max(terms, key=terms.get)
+        row.update(mxu_flops=real["mxu_flops"], vpu_flops=real["vpu_flops"],
+                   bytes=real["bytes"], ms=ms, roofline=terms,
+                   largest_term=top, largest_term_ms=1e3 * terms[top])
+        check(ms >= 1e3 * terms[top],
+              f"{kind}: {ms} ms is below its roofline term {terms}")
+        log(f"qwen2-0.5b {kind} {row['shape']}: {ms:.2f} ms against its "
+            f"{top} {1e3 * terms[top]:.3f} ms; args {grown / 1e9:.3f} GB "
+            f"allocated, {predicted[kind] / 1e9:.3f} GB from the dry-run; "
+            f"step_cost equal on the card and fake ({real['mxu_flops']:.3e} "
+            f"matmul flops, {real['bytes']:.3e} bytes)")
+        res[kind] = row
+        del args, cache, tokens, fargs
+    del model, params, pool
+    _release(torch)
+    return res
+
+
+def distributed_phase(torch, dev):
+    """Phase 15 (see the module docstring). Returns its record."""
+    t0 = time.perf_counter()
+    rec = dict(remat=remat_rows(torch, dev), counts=count_rows(torch, dev))
+    _release(torch)
+    rec["dryrun"] = dryrun_phase(t0)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 15 {rec['seconds']:.1f}s")
+    return rec
+
+
 def profile_decode(torch, decode, engine, captured, label: str,
                    steps: int = 5):
     """Device time by kernel over a few decode steps of ``decode`` on the
@@ -4053,7 +4384,6 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
-
     # ---- 1. the card ----------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4148,6 +4478,10 @@ def main(argv=None) -> int:
     whisper = whisper_phase(torch, dev)
     _release(torch)
     log(f"whisper phase {time.perf_counter() - t0:.1f}s")
+
+    # ---- 15. remat; the dry-run's counts; the dry-run at full depth -----
+    distributed = distributed_phase(torch, dev)
+    _release(torch)
 
     # launches over every serve, the main path's and each later one's
     serves = {"dense": serve["launches"],
@@ -4296,6 +4630,7 @@ def main(argv=None) -> int:
              qwen2_attention_rows=q_attention, qwen2=qwen2,
              route_checks=routes, learned_router=learned,
              variants=variants, moe=moe, ssm=ssm, whisper=whisper,
+             distributed=distributed,
              seconds=time.perf_counter() - t_start), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

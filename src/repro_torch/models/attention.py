@@ -35,8 +35,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import LoRAMode
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (init_device, linear, rmsnorm,
+from repro_torch.models.layers import (init_device, linear, repeats, rmsnorm,
                                       truncated_normal_init)
 
 NEG_INF = -1e30
@@ -126,6 +127,9 @@ def project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     if cfg.attn.rope:
         q = apply_rope(q, positions, cfg.attn.rope_theta)
         k = apply_rope(k, positions, cfg.attn.rope_theta)
+    q = logical_constraint(q, "batch", None, "heads", None)
+    k = logical_constraint(k, "batch", None, "kv_heads", None)
+    v = logical_constraint(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -214,29 +218,32 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kposb = kpos.reshape(nkv, block_kv)
 
     outs = []
-    for qi in range(nq):
-        qblk, qp = qb[:, qi], qposb[qi]
-        acc = q.new_zeros((b, kh, g, block_q, hd), dtype=torch.float32)
-        m = torch.full((b, kh, g, block_q), NEG_INF, dtype=torch.float32,
-                       device=q.device)
-        l = q.new_zeros((b, kh, g, block_q), dtype=torch.float32)
-        for j in range(nkv):
-            kj, vj, kp = kb[:, j], vb[:, j], kposb[j]
-            s = torch.einsum("bqkgd,bskd->bkgqs", qblk, kj).float() * scale
-            if softcap is not None:
-                s = torch.tanh(s / softcap) * softcap
-            mask = mfn(qp[:, None], kp[None, :])                 # [bq, bkv]
-            s = torch.where(mask[None, None, None], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqs,bskd->bkgqd", p.to(vj.dtype), vj).float()
-            m = m_new
-        l = torch.clamp_min(l, 1e-30)
-        outs.append((acc / l[..., None]).to(q.dtype))          # [b,kh,g,bq,hd]
-    out = torch.stack(outs)                                      # [nq,b,kh,g,bq,hd]
+    with repeats(nq, q) as run_q:
+        for qi in range(run_q):
+            qblk, qp = qb[:, qi], qposb[qi]
+            acc = q.new_zeros((b, kh, g, block_q, hd), dtype=torch.float32)
+            m = torch.full((b, kh, g, block_q), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+            l = q.new_zeros((b, kh, g, block_q), dtype=torch.float32)
+            with repeats(nkv, k) as run_kv:
+                for j in range(run_kv):
+                    kj, vj, kp = kb[:, j], vb[:, j], kposb[j]
+                    s = torch.einsum("bqkgd,bskd->bkgqs", qblk,
+                                     kj).float() * scale
+                    if softcap is not None:
+                        s = torch.tanh(s / softcap) * softcap
+                    mask = mfn(qp[:, None], kp[None, :])         # [bq, bkv]
+                    s = torch.where(mask[None, None, None], s, NEG_INF)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    p = torch.exp(s - m_new[..., None])
+                    alpha = torch.exp(m - m_new)
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[..., None] + torch.einsum(
+                        "bkgqs,bskd->bkgqd", p.to(vj.dtype), vj).float()
+                    m = m_new
+            l = torch.clamp_min(l, 1e-30)
+            outs.append((acc / l[..., None]).to(q.dtype))      # [b,kh,g,bq,hd]
+    out = torch.stack(outs * (nq // len(outs)))                  # [nq,b,kh,g,bq,hd]
     return out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, hd)
 
 
@@ -280,34 +287,39 @@ def _dequant(cache: Dict, name: str) -> torch.Tensor:
     return cache[name]
 
 
-def _write(cache: Dict, index: Any, k: torch.Tensor,
-           v: torch.Tensor) -> None:
-    """``cache[leaf][index] = ...`` for k and v (quantized on write in an
-    int8 cache, the scale stored in the scale leaf's dtype)."""
+def _write(cache: Dict, put: Any, k: torch.Tensor, v: torch.Tensor) -> None:
+    """``put(leaf, values)`` for k and v, in place (quantized on write in
+    an int8 cache, the scale stored in the scale leaf's dtype)."""
     if "k_scale" in cache:
         for name, x in (("k", k), ("v", v)):
             xq, xs = _quantize_kv(x)
-            cache[name][index] = xq
-            cache[f"{name}_scale"][index] = xs.to(
-                cache[f"{name}_scale"].dtype)
+            put(cache[name], xq)
+            put(cache[f"{name}_scale"], xs)
     else:
-        cache["k"][index] = k.to(cache["k"].dtype)
-        cache["v"][index] = v.to(cache["v"].dtype)
+        put(cache["k"], k)
+        put(cache["v"], v)
 
 
 def cache_update(cache: Dict, k_new: torch.Tensor, v_new: torch.Tensor,
                  pos: torch.Tensor) -> Dict:
     """Ring-buffer write of one token per sequence, in place.
 
-    k_new/v_new: [B, 1, KH, hd]; pos: [B] per-slot positions."""
+    k_new/v_new: [B, 1, KH, hd]; pos: [B] per-slot positions. Each row
+    writes its own ring entry (``scatter_`` along the ring dim, so a
+    cache sharded on its batch dim is written shard by shard)."""
     b = cache["k"].shape[0]
     clen = cache["k"].shape[-3]
     pos = torch.as_tensor(pos, dtype=torch.int32,
                           device=cache["pos"].device).expand(b)
     idx = (pos % clen).long()
-    rows = torch.arange(b, device=idx.device)
-    _write(cache, (rows, idx), k_new[:, 0], v_new[:, 0])
-    cache["pos"][rows, idx] = pos
+
+    def put(leaf: torch.Tensor, x: torch.Tensor) -> None:
+        rest = x.shape[1:]
+        index = idx.view(b, 1, *(1,) * len(rest)).expand(b, 1, *rest)
+        leaf.scatter_(1, index, x[:, None].to(leaf.dtype))
+
+    _write(cache, put, k_new[:, 0], v_new[:, 0])
+    put(cache["pos"], pos)
     return cache
 
 
@@ -322,9 +334,13 @@ def cache_fill(cache: Dict, k: torch.Tensor, v: torch.Tensor,
     if k.shape[1] > clen:
         k, v, positions = k[:, -clen:], v[:, -clen:], positions[-clen:]
     idx = (positions % clen).long()
-    _write(cache, (slice(None), idx), k, v)
-    cache["pos"][:, idx] = positions.to(torch.int32).expand(
-        cache["pos"].shape[0], idx.shape[0])
+
+    def put(leaf: torch.Tensor, x: torch.Tensor) -> None:
+        leaf.index_copy_(1, idx, x.to(leaf.dtype))
+
+    _write(cache, put, k, v)
+    put(cache["pos"], positions.to(torch.int32).expand(
+        cache["pos"].shape[0], idx.shape[0]))
     return cache
 
 

@@ -2,17 +2,76 @@
 
 Layers are plain functions on tensors: params are nested dicts of
 tensors, apply functions take (params, x, ...). LoRA enters every linear
-through ``repro_torch.core.lora``.
+through ``repro_torch.core.lora``; sharding hints through
+``logical_constraint`` (the identity off a mesh).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Optional, Tuple
+import threading
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lora import LoRAMode, apply_lora
+from repro_torch.distributed.sharding import logical_constraint
+
+
+class _Repeats(threading.local):
+    def __init__(self) -> None:
+        self.elide = False   # set only while counting a step on fake tensors
+        self.scale = 1       # product of the elided loops' trip counts
+
+
+_REPEATS = _Repeats()
+
+
+@contextlib.contextmanager
+def elide_repeats() -> Iterator[None]:
+    """Within the block, a ``repeats`` loop over fake tensors runs one
+    iteration that stands for all of them. Only for counting a step's
+    cost, where no value is computed: the skipped iterations would
+    dispatch the same ops on the same shapes. A ``repeats`` loop over
+    real tensors raises within it."""
+    prev = _REPEATS.elide
+    _REPEATS.elide = True
+    try:
+        yield
+    finally:
+        _REPEATS.elide = prev
+
+
+def repeat_scale() -> int:
+    """How many iterations each op dispatched now stands for."""
+    return _REPEATS.scale
+
+
+@contextlib.contextmanager
+def repeats(n: int, like: torch.Tensor) -> Iterator[int]:
+    """A loop of ``n`` iterations that differ only in which block they
+    read: yields how many to run. That is ``n``, unless a cost count
+    elides repeats (``elide_repeats``, with autograd off, so no backward
+    replays the one iteration): then one iteration runs and counts for
+    ``n``, as a scan's body counts for its length in the reference's
+    ``jaxpr_cost``. ``like`` is a tensor the loop reads; elision needs it
+    fake (a ``FakeTensor``, or a DTensor of fake shards) and raises on
+    real data, where one iteration would return one block's values for
+    all."""
+    if not _REPEATS.elide or n <= 1 or torch.is_grad_enabled():
+        yield n
+        return
+    from torch._subclasses.fake_tensor import is_fake
+    if not is_fake(like):
+        raise RuntimeError(
+            "elide_repeats around a loop over real tensors: one iteration "
+            "would stand for all and return wrong values")
+    _REPEATS.scale *= n
+    try:
+        yield 1
+    finally:
+        _REPEATS.scale //= n
 
 
 def init_device(generator: Optional[torch.Generator]) -> torch.device:
@@ -111,6 +170,7 @@ def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, *, act: str,
         h = fn(gate) * up
     else:
         h = fn(up)
+    h = logical_constraint(h, "batch", None, "ff")
     return linear({"w": params["down"]}, h, lget("down"), lora_mode)
 
 
@@ -121,4 +181,4 @@ def unembed(x: torch.Tensor, embed_or_head: torch.Tensor, *, tied: bool,
     logits = torch.matmul(x, w.t() if tied else w)
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
-    return logits
+    return logical_constraint(logits, "batch", None, "vocab")

@@ -30,6 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import LoRAMode
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import (init_device, rmsnorm,
@@ -200,7 +201,7 @@ class Model(nn.Module):
             # multiplies by it (59.75 in bf16 at d 3584); a Python scalar,
             # so no tensor is made on the device (a host sync)
             x = x * _round_to(math.sqrt(self.cfg.d_model), x.dtype)
-        return x
+        return logical_constraint(x, "batch", *(None,) * (x.ndim - 1))
 
     def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
         """The head: RMSNorm ``final_norm``, then the unembedding. An

@@ -7,8 +7,9 @@ capacity drop. Dispatch is a scatter into an ``[E, C, d]`` expert buffer
 and a gather back, as in the reference (which chose it over the classic
 ``[T, E, C]`` one-hot einsum for memory); small batches may take that
 one-hot einsum instead (``MoEConfig.gather_threshold``). Experts are
-stacked on a leading dim and computed as batched GEMMs. The reference's
-sharding hints (``logical_constraint``) have no counterpart here.
+stacked on a leading dim and computed as batched GEMMs. Sharding hints
+(``logical_constraint``) sit where the reference's do: the identity off
+a mesh, a redistribution of DTensors in the dry-run.
 
 Every step is device-side and sync-free: no boolean-mask indexing, no
 ``nonzero``, no host reads; capacities come from Python ints of the
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core.lora import LoRAMode
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models.layers import (activation, mlp, mlp_init,
                                       truncated_normal_init)
 
@@ -49,11 +51,13 @@ def _expert_ffn(experts: Dict, x: torch.Tensor, *, act: str,
                 glu: bool) -> torch.Tensor:
     """x: [E, C, d] -> [E, C, d] through each expert's (gated) MLP."""
     fn = activation(act)
+    x = logical_constraint(x, "expert", None, "fsdp")
     up = torch.bmm(x, experts["up"].to(x.dtype))
     if glu:
         h = fn(torch.bmm(x, experts["gate"].to(x.dtype))) * up
     else:
         h = fn(up)
+    h = logical_constraint(h, "expert", None, "ff")
     return torch.bmm(h, experts["down"].to(x.dtype))
 
 
@@ -130,6 +134,7 @@ def moe_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
             "te,tc->tec", _one_hot(flat_eids, e, x.dtype),
             _one_hot(pos, cap_d, x.dtype) * keep[:, None].to(x.dtype))
         buf = torch.einsum("tec,td->ecd", disp, x_rep)
+        buf = logical_constraint(buf, "expert", None, None)
         hout = _expert_ffn(params["experts"], buf, act=cfg.act, glu=cfg.glu)
         gates = gate_vals.reshape(t * k).to(x.dtype)
         y = torch.einsum("tec,ecd->td", disp * gates[:, None, None], hout)
@@ -142,8 +147,8 @@ def moe_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         # which is cut off before the experts run
         buf = x.new_zeros((e, cap + 1, d))
         buf[flat_eids, torch.where(keep, pos, cap)] = x_rep
-        hout = _expert_ffn(params["experts"], buf[:, :cap], act=cfg.act,
-                           glu=cfg.glu)
+        buf = logical_constraint(buf[:, :cap], "expert", None, None)
+        hout = _expert_ffn(params["experts"], buf, act=cfg.act, glu=cfg.glu)
         out_tok = hout[flat_eids, torch.where(keep, pos, 0)]     # [t·k, d]
         out_tok = torch.where(keep[:, None], out_tok, 0)
         gates = gate_vals.reshape(t * k).to(out_tok.dtype)
@@ -154,4 +159,4 @@ def moe_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         # per-request adapter ids of batched LoRA line up with its rows
         y = y + mlp(params["shared"], x, act=cfg.act, glu=cfg.glu,
                     lora=lora, lora_mode=lora_mode)
-    return y, aux
+    return logical_constraint(y, "batch", None, None), aux

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import LoRAMode
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models.layers import (init_device, linear, rmsnorm,
                                       truncated_normal_init)
 
@@ -192,6 +193,7 @@ def ssm_block_full(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     x_in, b_mat, c_mat = torch.split(xbc, [di, g * n, g * n], dim=-1)
     bsz, sl, _ = x.shape
     x_heads = x_in.reshape(bsz, sl, h, p)
+    x_heads = logical_constraint(x_heads, "batch", None, "ssm_heads", None)
     b_mat = b_mat.reshape(bsz, sl, g, n)
     c_mat = c_mat.reshape(bsz, sl, g, n)
     dt_f = softplus(dt.float() + params["dt_bias"].float())

@@ -11,7 +11,10 @@ stacked params, as in the reference::
     params['shared_attn']                      # zamba2's block, one copy
 
 The reference scans over groups; here a Python loop walks them, taking
-views of group ``i`` of every stacked leaf. LoRA params mirror the layout
+views of group ``i`` of every stacked leaf (with ``remat``, each group
+under ``torch.utils.checkpoint``). The residual stream is constrained to
+the batch axis after every slot (``logical_constraint``), as in the
+reference. LoRA params mirror the layout
 under a separate tree (pool layout ``[ng, R, r, d]``); caches use the
 same slot layout and are written in place: attention slots carry ring
 KV, SSM slots (conv, state), and ``cache['shared']`` the shared block's
@@ -23,9 +26,11 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import LoRAMode, init_lora_pair
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -329,6 +334,12 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
     zamba2's shared block runs after each group (``_shared_attn_block``),
     its ring ``cache['shared']`` filled on prefill.
+
+    ``opts['remat']`` (the train step's ``remat``) runs each group under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward pass
+    recomputes the group's forward instead of keeping its activations.
+    It applies without a cache only; a prefill, which has no backward,
+    runs its groups plainly.
     """
     shared_params = params.get("shared_attn")
     if prefix_kv is not None and (cache is None
@@ -340,10 +351,12 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     lora_layers = (lora or {}).get("layers", {})
     shared_lora = (lora or {}).get("shared_attn")
     fill = cache is not None
-    h = x
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"load_balance": zero, "router_z": zero}
-    for gi in range(n_groups(cfg)):
+    # training has no cache: the group's in-place cache writes never sit
+    # in a checkpointed region
+    remat = opts.get("remat", False) and not fill
+
+    def group_body(gi: int, h: torch.Tensor, lb: torch.Tensor,
+                   zl: torch.Tensor):
         gp = group_view(params["layers"], gi)
         gl = group_view(lora_layers, gi) if lora_layers else {}
         gc = group_view(cache, gi) if fill else {}
@@ -354,20 +367,36 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
             if kind == "ssm":
                 h = _ssm_slot_full(sp, lp, h, cfg, lora_mode,
                                    gc.get(f"slot{p}"), seq_mask, lengths)
-                continue
-            h = h + _attn_block_full(sp, lp, h, cfg, kind, positions,
-                                     lora_mode, opts, gc.get(f"slot{p}"),
-                                     prefix_kv=gpre.get(f"slot{p}"),
-                                     prefix_positions=prefix_positions,
-                                     attn_kernel=attn_kernel)
-            y, slot_aux = _ffn_block_full(sp, lp, h, cfg, lora_mode)
-            h = h + y
-            for name, v in slot_aux.items():
-                aux[name] = aux[name] + v
+            else:
+                h = h + _attn_block_full(sp, lp, h, cfg, kind, positions,
+                                         lora_mode, opts, gc.get(f"slot{p}"),
+                                         prefix_kv=gpre.get(f"slot{p}"),
+                                         prefix_positions=prefix_positions,
+                                         attn_kernel=attn_kernel)
+                y, slot_aux = _ffn_block_full(sp, lp, h, cfg, lora_mode)
+                h = h + y
+                if slot_aux:
+                    lb = lb + slot_aux["load_balance"]
+                    zl = zl + slot_aux["router_z"]
+            h = logical_constraint(h, "batch", None, None)
         if shared_params is not None:
             h = _shared_attn_block(shared_params, shared_lora, h, cfg,
                                    positions, lora_mode, opts,
                                    gc.get("shared"), attn_kernel)
+        return h, lb, zl
+
+    h = x
+    lb = zl = torch.zeros((), dtype=torch.float32, device=x.device)
+    for gi in range(n_groups(cfg)):
+        if remat:
+            # recompute the group's forward in the backward pass instead of
+            # keeping its activations (the reference's jax.checkpoint of
+            # the scan body)
+            h, lb, zl = torch.utils.checkpoint.checkpoint(
+                group_body, gi, h, lb, zl, use_reentrant=False)
+        else:
+            h, lb, zl = group_body(gi, h, lb, zl)
+    aux = {"load_balance": lb, "router_z": zl}
     if fill:
         return h, aux, cache
     return h, aux

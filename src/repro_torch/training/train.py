@@ -49,9 +49,15 @@ def _trainable(tree: Any) -> Any:
 def make_train_step(model: Model, *, peak_lr: float = 1e-4,
                     warmup: int = 50, total_steps: int = 1000,
                     weight_decay: float = 0.0,
-                    train_base: bool = False) -> Callable:
-    """LoRA fine-tune step (train_base=False) or full fine-tune step."""
+                    train_base: bool = False,
+                    remat: bool = False) -> Callable:
+    """LoRA fine-tune step (train_base=False) or full fine-tune step.
+    ``remat`` recomputes each layer group's forward in the backward pass
+    (``torch.utils.checkpoint``) instead of keeping its activations: the
+    same numbers for less memory. It applies to the decoder-only stacks;
+    an encoder-decoder's layers run plainly, as in the reference."""
     scale = model.cfg.lora.scale
+    opts = {"remat": remat}
 
     def loss_fn(lora: Any, params: Any, batch: Dict
                 ) -> Tuple[torch.Tensor, Dict]:
@@ -60,7 +66,7 @@ def make_train_step(model: Model, *, peak_lr: float = 1e-4,
         inp["tokens"] = tokens[:, :-1]
         mode = (LoRAMode("single", None, scale) if lora is not None
                 else LoRAMode())
-        logits, aux = model.forward(params, inp, lora, mode,
+        logits, aux = model.forward(params, inp, lora, mode, opts,
                                     attn_kernel=False)
         loss = cross_entropy(logits, tokens[:, 1:], batch.get("loss_mask"))
         total = loss + sum(aux.values()) if aux else loss

@@ -1685,3 +1685,144 @@ def test_cuda_whisper_decode_step_makes_no_host_sync(dev):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer and the train step's remat on the card
+# ---------------------------------------------------------------------------
+
+
+class _NamedMesh:
+    """A mesh of named axes and nothing else: ``logical_constraint`` has
+    a mesh to read, and the step's tensors are plain, not DTensors."""
+    shape = {"data": 16, "model": 16}
+
+
+@pytest.mark.cuda
+def test_cuda_steps_under_a_mesh_make_no_host_sync(dev):
+    """A bf16 prefill and decode step of the reduced Llama (kernels on)
+    with a mesh set: every ``logical_constraint`` of the model is the
+    identity on a plain tensor and runs no op, and the ring writes
+    (``scatter_`` / ``index_copy_``) wait on nothing, under
+    ``torch.cuda.set_sync_debug_mode("error")``. Same logits as without
+    the mode and without a mesh."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lora import LoRAMode
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(reduced_config(get_config("llama3-8b")),
+                              dtype="bfloat16")
+    model = build_model(cfg, dev, attn_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = model.init(gen)
+    pool = model.init_lora(gen, n_slots=4)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 8), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pos = torch.tensor([8, 8, 8], dtype=torch.int32, device=dev)
+    mode = LoRAMode("batched", torch.tensor([2, 0, 2], dtype=torch.int32,
+                                            device=dev), 0.5, "sgmv")
+
+    def steps():
+        cache = model.init_cache(3, 16)
+        first, cache = model.prefill(params, {"tokens": tokens}, cache, pool,
+                                     mode)
+        nxt, _ = model.decode_step(params, first.argmax(-1).int(), cache,
+                                   pos, pool, mode)
+        return first, nxt
+
+    want = steps()
+    torch.cuda.synchronize()
+    with use_mesh(_NamedMesh()):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = steps()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "dbrx-132b", "mamba2-130m"])
+def test_cuda_remat_equals_no_remat(dev, arch):
+    """Two f32 LoRA train steps of a reduced config with remat on and off
+    on the card: the same loss, grad norm, AdamW moments and adapter, bit
+    for bit (the recompute runs the same kernels on the same inputs)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.training import optimizer, train
+    cfg = reduced_config(get_config(arch))
+    model = build_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = model.init(gen)
+    lora = model.init_lora(gen)
+    for t in optimizer.tree_leaves(lora):
+        t.normal_(0.0, 0.02, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 17), generator=gen,
+                           device=dev, dtype=torch.int32)
+    runs = []
+    for remat in (False, True):
+        step = train.make_train_step(model, remat=remat, peak_lr=1e-3,
+                                     warmup=1, total_steps=4)
+        state = train.TrainState(params, lora, optimizer.adamw_init(lora))
+        mets = []
+        for _ in range(2):
+            state, met = step(state, {"tokens": tokens})
+            mets.append(met)
+        runs.append((state, mets))
+    (s0, m0), (s1, m1) = runs
+    for a, b in zip(m0, m1):
+        assert set(a) == set(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    for t0, t1 in ((s0.lora, s1.lora), (s0.opt.mu, s1.opt.mu),
+                   (s0.opt.nu, s1.opt.nu)):
+        for a, b in zip(optimizer.tree_leaves(t0), optimizer.tree_leaves(t1)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_cuda_step_cost_equals_fake_count(dev, kind):
+    """``step_cost`` of a reduced qwen2-0.5b step (plain route, einsum
+    LoRA) on the card's tensors equals ``step_cost`` of the same step on
+    fake copies of them: flops and bytes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lora import LoRAMode
+    from repro_torch.launch.analysis import step_cost
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(reduced_config(get_config("qwen2-0.5b")),
+                              dtype="bfloat16")
+    model = build_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    params = model.init(gen)
+    pool = model.init_lora(gen, n_slots=4, dtype=torch.bfloat16)
+    cache = model.init_cache(4, 64)
+    slots = torch.tensor([0, 3, 1, 3], dtype=torch.int32, device=dev)
+    if kind == "prefill":
+        tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen,
+                               device=dev, dtype=torch.int32)
+        args = (params, pool, {"tokens": tokens}, cache, slots)
+    else:
+        tokens = torch.randint(0, cfg.vocab_size, (4,), generator=gen,
+                               device=dev, dtype=torch.int32)
+        pos = torch.tensor([3, 40, 63, 0], dtype=torch.int32, device=dev)
+        args = (params, pool, tokens, cache, pos, slots)
+
+    def run(*a):
+        mode = LoRAMode("batched", a[-1], cfg.lora.scale, "einsum")
+        if kind == "prefill":
+            return model.prefill(a[0], a[2], a[3], a[1], mode)
+        return model.decode_step(a[0], a[2], a[3], a[4], a[1], mode)
+
+    with torch.no_grad():
+        real = step_cost(run, *args)
+        with FakeTensorMode(allow_non_fake_inputs=True) as fm:
+            fake_args = tree_map(fm.from_tensor, args)
+        fake = step_cost(run, *fake_args)
+    for key in ("mxu_flops", "vpu_flops", "bytes"):
+        assert real[key] == fake[key] > 0, key
