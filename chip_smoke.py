@@ -89,8 +89,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 8. Tracing: one ``edgelora`` serve with an ``EngineTracer``: streams and
    summary equal to the untraced serve's; the exported trace
    (``chiprun_out/qwen2_trace.json``) passes ``tools/trace_export.py``
-   and reads back through ``tools/trace_report.py`` (unchanged; its two
-   helper imports resolved to the port's jax-free copies). Then an
+   and reads back through ``tools/trace_report_torch.py`` (the
+   reference's report on the port's serving modules). Then an
    ``edgelora`` serve on an overcommitted arena (24 pages, a seventh of
    dense capacity) with the prefix cache: deferrals or preemptions,
    copy-on-write pages, streams equal to a dense serve's. Then
@@ -136,20 +136,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     ``flash_prefill`` at [2, 4352] past the window (chameleon: [8, 64]),
     the page gather at gemma2's paged step (bf16 and int8 K pages, bf16
     scale pages).
-    gemma2-9b (full width, 22 of its 42 layers, which keeps the run
+    gemma2-9b (full width, 12 of its 42 layers, which keeps the run
     inside its time: d 3584, 16/8 heads, hd 256, d_ff 14336, vocab
     256000, tied, local/global slots, window 4096, softcaps 50/30,
     post-norms, scaled embeddings; LoRA rank 16 on 7 modules, a pool of
     8): a route check (2 rows of 4352 and 4200 tokens, 4 decode steps on
     the wrapped rings; the kernel route against plain attention and
-    einsum LoRA within ``ROUTE_TOL``, 22 ``flash_prefill`` launches a
-    prefill and 22 ``flash_decode`` a decode step, 154 of each SGMV
+    einsum LoRA within ``ROUTE_TOL``, 12 ``flash_prefill`` launches a
+    prefill and 12 ``flash_decode`` a decode step, 84 of each SGMV
     kernel a step), the same prefill and one decode step with an int8
     cache against plain attention over the dequantized ring; dense vs
     paged ``edgelora`` serves of 8 requests (3 prompts of 4100–4400
     tokens, ``max_ctx`` 4608), bf16 and int8, under one fake timer: equal
     streams and summaries, 4 page-gather launches per paged decode step
-    (8 with the scales), 154 of each SGMV kernel per unmerged step call;
+    (8 with the scales), 84 of each SGMV kernel per unmerged step call;
     ``prefix_cache`` and ``prefill_chunk`` refused with the reference's
     ``ValueError``. starcoder2-7b (32 layers, d 4608, 36/4 heads, d_ff
     18432, vocab 49152, QKV bias, all-local window 4096, non-GLU GELU,
@@ -266,6 +266,34 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     without the replicate fallback's gathers, trace s), in this process;
     after the first arch, one that would take the phase past 90 s is
     skipped and recorded so.
+
+16. The repo's examples on the card (after phase 15). (a) The four
+    ``examples/*_torch.py`` as written, ``--device cuda``, each in a child
+    process (started together), which prints its kernel launch counts
+    after the script: exit code 0; the quickstart's max err and decoded
+    tokens, the multi-tenant serve's three rows (``llamacpp`` refused:
+    out of memory), the SSM example's 72.1 KB state, the training
+    example's losses, per-task evaluation (each task's own adapter below
+    the base model, the other task's not) and router accuracy; the
+    quickstart launches each SGMV kernel 140 times, ``flash_prefill`` 12
+    and ``flash_decode`` 16, the multi-tenant serve all four, the SSM
+    serve the SGMV pair and no attention kernel (mamba2 has no
+    attention), the training example ``flash_prefill`` only (evaluation
+    and the router's trunk; its train steps run the plain route). (b) The
+    quickstart's body at Llama-3.1-8B's full width and depth (bf16,
+    fan-in weights, rank-32 adapters with nonzero B, 4 tenants x 16
+    tokens, 8 decode steps) on the kernel route (2240 launches of each
+    SGMV kernel, 192 ``flash_prefill``, 256 ``flash_decode``) and the
+    plain route (none): batched against per-request error relative to
+    max|logit| on each, and the decoded tokens the routes share; then in
+    f32 at the example's reduced size, on fan-in weights, where batched
+    and per-request must agree within ``QUICKSTART_F32_TOL`` of
+    max|logit| on the kernel route, and on the example's own weights,
+    recorded beside how far a one-ulp perturbation of their params moves
+    the logits (their attention scores reach ~3000). (c) mamba2-130m at
+    full width and depth: the decode state's bytes, equal for a 64 and a
+    524288-token context, and decode steps at positions 10, 10 000 and
+    500 000.
 
 Each serve's kernel launch counts are zeroed just before it and read just
 after; every kernel its path runs must have launched.
@@ -1869,23 +1897,6 @@ def _run_tool(args):
     return out.returncode, out.stdout + out.stderr
 
 
-# tools/trace_report.py imports its two helper modules from the JAX
-# package's serving package, whose __init__ imports the JAX engine; the
-# port keeps copies of both (jax-free, the same code). The tool file runs
-# unchanged, its two imports resolved to the port's copies.
-_TRACE_REPORT = """
-import runpy, sys, types
-sys.path[:0] = [{src!r}, {root!r}]
-from repro_torch.serving import metrics, trace
-for name in ("repro", "repro.serving"):
-    sys.modules[name] = types.ModuleType(name)
-sys.modules["repro.serving.metrics"] = metrics
-sys.modules["repro.serving.trace"] = trace
-sys.argv = ["tools/trace_report.py", {path!r}]
-runpy.run_path("tools/trace_report.py", run_name="__main__")
-"""
-
-
 def qwen2_phase(torch, dev):
     """qwen2-0.5b at full width (bf16, 24 layers, d 896, 14/2 heads,
     d_ff 4864, vocab 151936, QKV bias; LoRA rank 16 on all seven
@@ -1899,7 +1910,7 @@ def qwen2_phase(torch, dev):
     * ``edgelora`` dense with the tracer on: streams and summary (but
       for the tracing-only latency breakdown) equal the untraced serve's;
       the exported trace passes ``tools/trace_export.py`` (the schema
-      check) and reads back through ``tools/trace_report.py``;
+      check) and reads back through ``tools/trace_report_torch.py``;
     * ``edgelora`` paged on an overcommitted arena (24 pages, a seventh
       of dense capacity) with the prefix cache: deferrals or preemptions
       and copy-on-write pages, streams equal to a dense serve's.
@@ -2018,12 +2029,12 @@ def qwen2_phase(torch, dev):
     path.parent.mkdir(exist_ok=True)
     tracer.export(path)
     rc_export, text_export = _run_tool(["tools/trace_export.py", str(path)])
-    rc_report, text_report = _run_tool(["-c", _TRACE_REPORT.format(
-        src=str(SRC), root=str(ROOT), path=str(path))])
+    rc_report, text_report = _run_tool(["tools/trace_report_torch.py",
+                                        str(path)])
     check(rc_export == 0, "tools/trace_export.py rejected the trace")
     check(rc_report == 0 and "# trace: policy=edgelora" in text_report
           and "VIOLATION" not in text_report,
-          "tools/trace_report.py could not read the trace")
+          "tools/trace_report_torch.py could not read the trace")
     log(text_export.strip())
     log("\n".join(text_report.strip().splitlines()[:12]))
     traced["summary"] = dataclasses.asdict(traced["summary"])
@@ -2159,10 +2170,10 @@ LONG_CTX = 4608          # the long serves' max_ctx: 4400 + 48 tokens fit
 LONG_S = 4352            # route check prompts, past the 4096 window
 LONG_LENGTHS = (4352, 4200)
 LONG_DECODE_STEPS = 4
-# gemma2-9b at 22 of its 42 layers (11 local/global pairs): its four
-# host-bound long serves took ~80 s of the run at full depth, and phase 13
-# needed the time
-GEMMA2_LAYERS = 22
+# gemma2-9b at 12 of its 42 layers (6 local/global pairs): its four
+# host-bound long serves took ~80 s of the run at full depth and ~50 s at
+# 22 layers, and phases 13 and 16 needed the time
+GEMMA2_LAYERS = 12
 # chameleon-34b's 68 GB of bf16 weights leave no room for its pool, caches
 # and the plain route beside them on one 80 GB card: its full width at
 # this depth
@@ -4290,6 +4301,284 @@ def distributed_phase(torch, dev):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the repo's examples on the card (examples/*_torch.py)
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("quickstart_torch.py", "serve_multitenant_torch.py",
+            "serve_ssm_long_context_torch.py", "train_lora_adapter_torch.py")
+# an example as written, in a child process on the card; the child's
+# launch counts (zero at its start) after the script, on a line of their
+# own
+_EXAMPLE = """
+import json, runpy, sys
+sys.path.insert(0, {src!r})
+sys.argv = [{script!r}, "--device", "cuda"]
+runpy.run_path({script!r}, run_name="__main__")
+from repro_torch.kernels import decode_attention, flash_prefill, paged_gather, sgmv
+counts = {{}}
+for mod in (sgmv, paged_gather, decode_attention, flash_prefill):
+    counts.update(mod.launches)
+print("LAUNCHES:" + json.dumps(counts))
+"""
+# batched vs per-request on the kernel route, f32, the example's reduced
+# size on fan-in weights: the same sums per row in another order (GEMMs
+# of 64 and 16 rows), within 1e-5 of max|logit|
+QUICKSTART_F32_TOL = 1e-5
+
+
+def _example_module(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name[:-3], ROOT / "examples" / name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_figures(name, out):
+    """The key figures an example prints."""
+    import re
+    lines = out.splitlines()
+    if name == "quickstart_torch.py":
+        return dict(max_err=float(re.search(r"max err (\S+)", out)[1]),
+                    decoded=next(l for l in lines if l.startswith("decoded")))
+    if name == "serve_multitenant_torch.py":
+        return dict(rows=[l for l in lines if l.split()[:1] in (
+            ["edgelora"], ["edgelora_no_aas"], ["llamacpp"])])
+    if name == "serve_ssm_long_context_torch.py":
+        return dict(serve=lines[0], state=next(
+            l for l in lines if l.startswith("decode state")))
+    evals = {(int(t), int(a)): (float(la), float(base)) for t, a, la, base in
+             re.findall(r"task (\d): adapter(\d) (\S+) vs base (\S+)", out)}
+    # the logged train losses, task 0's then task 1's
+    losses = [float(x) for x in re.findall(r"loss (\S+)  gnorm", out)]
+    half = len(losses) // 2
+    acc, chance = re.search(r"accuracy: (\S+) \(chance (\S+)\)", out).groups()
+    return dict(evals={f"task{t}_adapter{a}": v for (t, a), v in
+                       evals.items()},
+                losses=[losses[:half], losses[half:]],
+                router_acc=float(acc), chance=float(chance),
+                verified=out.count("and verified"))
+
+
+def _check_example(name, rc, out, err, launches):
+    check(rc == 0, f"examples/{name} exited {rc}: {err[-2000:]}")
+    figures = _example_figures(name, out)
+    attn = ("flash_prefill", "flash_decode")
+    if name == "quickstart_torch.py":
+        # reduced: 2 layers x 5 LoRA modules a call; the forward, 4
+        # per-request forwards, the prefill and 8 decode steps
+        want = dict(sgmv_shrink=140, sgmv_expand=140, flash_prefill=12,
+                    flash_decode=16, paged_gather_pages=0)
+        check(launches == want, f"{name}: launches {launches} != {want}")
+    elif name == "serve_multitenant_torch.py":
+        check(all(launches[k] > 0 for k in ("sgmv_shrink", "sgmv_expand",
+                                            *attn)),
+              f"{name}: a kernel of the serve never launched: {launches}")
+        check(len(figures["rows"]) == 3 and "OOM" in figures["rows"][2],
+              f"{name}: rows {figures['rows']}")
+    elif name == "serve_ssm_long_context_torch.py":
+        # attention-free: the LoRA pair on in_proj/out_proj only
+        check(launches["sgmv_shrink"] > 0 and launches["sgmv_expand"] > 0
+              and not any(launches[k] for k in attn),
+              f"{name}: launches {launches}")
+        check("72.1 KB" in figures["state"], figures["state"])
+    else:
+        # the evaluation and the router's trunk run flash_prefill; the
+        # train steps the plain route; single-adapter LoRA is einsum
+        check(launches["flash_prefill"] > 0 and not any(
+            launches[k] for k in ("sgmv_shrink", "sgmv_expand",
+                                  "flash_decode")),
+              f"{name}: launches {launches}")
+        check(figures["verified"] == 2, f"{name}: checkpoints")
+        for task in (0, 1):
+            own, base = figures["evals"][f"task{task}_adapter{task}"]
+            other, _ = figures["evals"][f"task{task}_adapter{1 - task}"]
+            check(own < base <= other,
+                  f"{name}: task {task}: own adapter {own}, base {base}, "
+                  f"other adapter {other}")
+    return figures
+
+
+def quickstart_full(torch, dev, qs):
+    """(b) The quickstart's body at Llama-3.1-8B's full width and depth
+    (bf16; fan-in weights; rank-32 adapters with nonzero B, one per slot)
+    on the kernel route and the plain route; then in f32 at the example's
+    reduced size, on its own weights and on fan-in ones."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lora import load_adapter_into_slot
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import tree_map
+    cfg = get_config("llama3-8b")
+    model = build_model(cfg, dev, attn_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    params = model.init(gen)
+    prepare_weights(torch, cfg, params, gen)
+    pool = model.init_lora(gen, n_slots=4)
+    source = make_adapter_source(torch, dev, cfg)
+    for slot in range(4):
+        load_adapter_into_slot(tree_map(lambda t: t.movedim(1, 0), pool),
+                               source(slot), slot)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                           device=dev, dtype=torch.int32)
+    calls = 1 + 4 + 1 + 8           # forward, per-request, prefill, decode
+    routes = {}
+    for route, kernel, backend in (("kernel", True, "sgmv"),
+                                   ("plain", False, "einsum")):
+        model.attn_kernel = kernel
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = qs.run(model, params, pool, tokens, backend=backend)
+        torch.cuda.synchronize()
+        launches = _counts()
+        peak = float(res["logits"].float().abs().max())
+        routes[route] = dict(rel_err=res["max_err"] / peak,
+                             max_err=res["max_err"], max_logit=peak,
+                             decoded=res["decoded"], launches=launches,
+                             seconds=time.perf_counter() - t0)
+        want = (dict(sgmv_shrink=160 * calls, sgmv_expand=160 * calls,
+                     flash_prefill=32 * 6, flash_decode=32 * 8,
+                     paged_gather_pages=0) if kernel
+                else {k: 0 for k in launches})
+        check(launches == want, f"quickstart full {route}: launches "
+              f"{launches} != {want}")
+        check(res["logits"].isfinite().all().item(),
+              f"quickstart full {route}: non-finite logits")
+    same = sum(a == b for ra, rb in zip(routes["kernel"]["decoded"],
+                                        routes["plain"]["decoded"])
+               for a, b in zip(ra, rb))
+    del model, params, pool
+    _release(torch)
+    # f32 at the reduced size: batched vs per-request on each route, on
+    # the example's own weights and on fan-in ones. The example's (the
+    # reference's init, stddev 1/sqrt(n_groups), and its shifted
+    # adapters at LoRA scale 16) drive attention scores to ~3000: there a
+    # relative perturbation of one f32 ulp (2^-24) of the params moves
+    # the logits by ~3e-5 of max|logit| (measured here, kernel route), so
+    # two summation orders (a GEMM of 64 rows and one of 16) differ by as
+    # much; recorded beside it. Held to QUICKSTART_F32_TOL on fan-in
+    # weights (prepare_weights) with B ~ N(0, B_STD^2) adapters.
+    cfg32 = dataclasses.replace(reduced_config(get_config("llama3-8b")),
+                                dtype="float32")
+    f32 = {}
+    for weights in ("example", "fan_in"):
+        for route, kernel in (("kernel", True), ("plain", False)):
+            m = build_model(cfg32, dev, attn_kernel=kernel)
+            if weights == "example":
+                params, pool, tokens = qs.draw(m)
+            else:
+                gen = torch.Generator(device=dev).manual_seed(18)
+                params = m.init(gen)
+                prepare_weights(torch, cfg32, params, gen)
+                pool = m.init_lora(gen, n_slots=4)
+                source = make_adapter_source(torch, dev, cfg32)
+                for slot in range(4):
+                    load_adapter_into_slot(
+                        tree_map(lambda t: t.movedim(1, 0), pool),
+                        source(slot), slot)
+                tokens = torch.randint(0, cfg32.vocab_size, (4, 16),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int32)
+            backend = "sgmv" if kernel else "einsum"
+            res = qs.run(m, params, pool, tokens, backend=backend)
+            peak = float(res["logits"].abs().max())
+            row = dict(rel_err=res["max_err"] / peak)
+            if kernel:
+                gen = torch.Generator(device=dev).manual_seed(19)
+                moved = tree_map(lambda t: t * (1 + 2.0 ** -24 * torch.randn(
+                    t.shape, generator=gen, device=dev)), params)
+                again = qs.run(m, moved, pool, tokens, backend=backend)
+                row["ulp_sensitivity"] = float(
+                    (again["logits"] - res["logits"]).abs().max()) / peak
+            f32[f"{weights}_{route}"] = row
+    check(f32["fan_in_kernel"]["rel_err"] <= QUICKSTART_F32_TOL,
+          f"quickstart f32 kernel route, fan-in weights: batched vs "
+          f"per-request {f32['fan_in_kernel']['rel_err']:.3g} of "
+          f"max|logit| > {QUICKSTART_F32_TOL}")
+    log(f"quickstart full width: batched vs per-request "
+        f"{routes['kernel']['rel_err']:.3g} (kernel) / "
+        f"{routes['plain']['rel_err']:.3g} (plain) of max|logit|; "
+        f"{same}/32 decoded tokens equal across routes; f32 reduced "
+        f"{json.dumps(f32)}")
+    return dict(routes=routes, decoded_equal=same, f32_rel_err=f32)
+
+
+def ssm_full(torch, dev, ssm_ex):
+    """(c) mamba2-130m at full width and depth: the decode state's bytes
+    (equal for a 64 and a 524288-token context) and one decode step at
+    each of the example's positions, the state carried."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import tree_leaves
+    cfg = get_config("mamba2-130m")
+    model = build_model(cfg, dev, attn_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    params = model.init(gen)
+    prepare_weights(torch, cfg, params, gen)
+
+    def nbytes(ctx):
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(model.init_cache(1, ctx)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, logits = ssm_ex.long_context(model, params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(state == nbytes(64) == nbytes(524288),
+          f"mamba2 state {state} B depends on the context")
+    for pos, lg in zip(ssm_ex.POSITIONS, logits):
+        check(tuple(lg.shape) == (1, cfg.vocab_size)
+              and lg.isfinite().all().item(),
+              f"mamba2 decode at {pos}: {tuple(lg.shape)}")
+    return dict(state_bytes=state, positions=list(ssm_ex.POSITIONS),
+                seconds=seconds,
+                max_logit=[float(lg.float().abs().max()) for lg in logits])
+
+
+def examples_phase(torch, dev):
+    """Phase 16 (see the module docstring). Returns its record."""
+    t0 = time.perf_counter()
+    procs = {}
+    for name in EXAMPLES:
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-c", _EXAMPLE.format(
+                src=str(SRC), script=f"examples/{name}")], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    rec = dict(quickstart_full=quickstart_full(
+        torch, dev, _example_module("quickstart_torch.py")))
+    rec["mamba2_full"] = ssm_full(
+        torch, dev, _example_module("serve_ssm_long_context_torch.py"))
+    _release(torch)
+    runs = {}
+    try:
+        for name, (start, proc) in procs.items():
+            out, err = proc.communicate(timeout=600)
+            seconds = time.perf_counter() - start
+            lines = out.splitlines()
+            launches = (json.loads(lines[-1][len("LAUNCHES:"):])
+                        if lines and lines[-1].startswith("LAUNCHES:")
+                        else {})
+            figures = _check_example(name, proc.returncode, out, err,
+                                     launches)
+            runs[name] = dict(seconds=seconds, launches=launches,
+                              figures=figures)
+            log(f"examples/{name} {seconds:.1f}s: {json.dumps(figures)}; "
+                f"launches {launches}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    rec["runs"] = runs
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 16 {rec['seconds']:.1f}s")
+    return rec
+
+
 def profile_decode(torch, decode, engine, captured, label: str,
                    steps: int = 5):
     """Device time by kernel over a few decode steps of ``decode`` on the
@@ -4483,6 +4772,10 @@ def main(argv=None) -> int:
     distributed = distributed_phase(torch, dev)
     _release(torch)
 
+    # ---- 16. the examples -------------------------------------------------
+    examples = examples_phase(torch, dev)
+    _release(torch)
+
     # launches over every serve, the main path's and each later one's
     serves = {"dense": serve["launches"],
               "paged_compare_dense": paged["dense"]["launches"],
@@ -4509,6 +4802,11 @@ def main(argv=None) -> int:
     # whisper's path has no serve (the engine refuses it): its model calls
     for arch, rec in whisper.items():
         serves[f"{arch}_model_calls"] = rec["launches"]
+    # the examples: each script's run, and the quickstart at full width
+    for name, run in examples["runs"].items():
+        serves[f"example_{name[:-len('_torch.py')]}"] = run["launches"]
+    serves["example_quickstart_full"] = (
+        examples["quickstart_full"]["routes"]["kernel"]["launches"])
 
     def pick(kernel, table, d):
         """A model's decode shape: 8 bf16 rows, ``d`` wide."""
@@ -4630,7 +4928,7 @@ def main(argv=None) -> int:
              qwen2_attention_rows=q_attention, qwen2=qwen2,
              route_checks=routes, learned_router=learned,
              variants=variants, moe=moe, ssm=ssm, whisper=whisper,
-             distributed=distributed,
+             distributed=distributed, examples=examples,
              seconds=time.perf_counter() - t_start), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -216,7 +216,13 @@ def test_unported_features_raise(change, msg):
 
 
 def _run_cli(*args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    """The serve CLI in a subprocess on one intra-op thread. Its virtual
+    clock charges each step's wall time, and beside the other test
+    workers a default pool (one thread per core) waits at every op's
+    barrier for threads the busy cores have descheduled: a reduced step
+    of 10 ms took 0.3-6 s, and timing-dependent counts (prefix hits) went
+    to zero."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: importing ``repro_torch`` (every
-submodule) and ``chip_smoke`` pulls in neither JAX nor the ``repro``
-package, and no source of either imports them."""
+submodule), ``chip_smoke`` and the port's scripts (the four
+``examples/*_torch.py``, ``experiments/hillclimb_torch.py``,
+``tools/trace_report_torch.py``) pulls in neither JAX nor the ``repro``
+package, and no source of any of them imports them."""
 import ast
 import os
 import subprocess
@@ -13,7 +15,10 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCRIPTS = (sorted((ROOT / "examples").glob("*_torch.py"))
+           + [ROOT / "experiments" / "hillclimb_torch.py",
+              ROOT / "tools" / "trace_report_torch.py"])
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", *SCRIPTS]
 
 _CHECK = """
 import importlib, importlib.util, pkgutil, sys
@@ -22,8 +27,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for i, path in enumerate(sys.argv[1:]):
+    spec = importlib.util.spec_from_file_location(f"script{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
@@ -32,8 +38,9 @@ print(len(names), bad)
 
 def test_import_leaves_jax_and_repro_out():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    assert len(SCRIPTS) == 6 and all(p.exists() for p in SCRIPTS)
     out = subprocess.run([sys.executable, "-c", _CHECK,
-                          str(ROOT / "chip_smoke.py")],
+                          str(ROOT / "chip_smoke.py"), *map(str, SCRIPTS)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
