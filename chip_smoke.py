@@ -298,9 +298,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 Each serve's kernel launch counts are zeroed just before it and read just
 after; every kernel its path runs must have launched.
 
-Prints a ``{"kernels": [...]}`` line, then as its last line
-``{"ok": true, "device": {...}}``. Writes details to
-``chiprun_out/chip_smoke.json``.
+After the last phase, each module-level cache of the port's compile and
+cache registry (``tools/lint_torch/compile_registry.json``, checked by
+``tools/lint_torch`` rule EL003) is counted: a count over the bound its
+entry states fails the run; an entry with no numeric bound is counted and
+not held.
+
+Prints a ``{"kernels": [...]}`` line, then a ``{"caches": {...}}`` line,
+then as its last line ``{"ok": true, "device": {...}}``. Writes details
+to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -314,6 +320,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+REGISTRY = ROOT / "tools" / "lint_torch" / "compile_registry.json"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -4656,6 +4663,25 @@ def profile_decode(torch, decode, engine, captured, label: str,
 # ---------------------------------------------------------------------------
 
 
+def cache_counts():
+    """Each cache of the compile and cache registry: its entries in this
+    process now, the bound its registry entry states (None: not held),
+    and whether it is keyed by stream."""
+    import importlib
+    out = {}
+    for site, entry in sorted(json.loads(REGISTRY.read_text())["sites"]
+                              .items()):
+        if entry["kind"] != "cache":
+            continue
+        relpath, _, name = site.split("::")
+        module = relpath[len("src/"):-len(".py")].replace("/", ".")
+        out[site] = dict(
+            entries=len(getattr(importlib.import_module(module), name)),
+            bound=entry["bound"], held=entry["bound"] is not None,
+            stream_keyed=entry["stream_keyed"])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4775,6 +4801,7 @@ def main(argv=None) -> int:
     # ---- 16. the examples -------------------------------------------------
     examples = examples_phase(torch, dev)
     _release(torch)
+    caches = cache_counts()
 
     # launches over every serve, the main path's and each later one's
     serves = {"dense": serve["launches"],
@@ -4928,10 +4955,15 @@ def main(argv=None) -> int:
              qwen2_attention_rows=q_attention, qwen2=qwen2,
              route_checks=routes, learned_router=learned,
              variants=variants, moe=moe, ssm=ssm, whisper=whisper,
-             distributed=distributed, examples=examples,
+             distributed=distributed, examples=examples, caches=caches,
              seconds=time.perf_counter() - t_start), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"caches": caches}))
+    for site, c in caches.items():
+        check(not c["held"] or c["entries"] <= c["bound"],
+              f"{site}: {c['entries']} entries, over its registered bound "
+              f"{c['bound']}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

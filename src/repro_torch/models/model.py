@@ -451,7 +451,7 @@ class Model(nn.Module):
 
 def _round_to(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype`` (on the host)."""
-    return torch.tensor(value, dtype=dtype).item()
+    return torch.tensor(value, dtype=dtype).item()  # el: allow[host-sync] -- host tensor
 
 
 def _invalidate_past(cache: Dict, lengths: torch.Tensor) -> Dict:

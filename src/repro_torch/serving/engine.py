@@ -194,7 +194,7 @@ class EdgeLoRAEngine:
         # concrete batched-LoRA backend ('einsum' | 'sgmv')
         self.lora_backend = resolve_lora_backend(
             engine_cfg.lora_backend or cfg.lora_backend, self.device)
-        self._timer = timer if timer is not None else time
+        self._timer = timer if timer is not None else time  # el: allow[clock] -- _timed's default
         # buckets cover max_ctx so no prompt that fits the KV capacity is
         # ever silently truncated by _padded_prompt
         self._buckets = tuple(sorted(
@@ -516,7 +516,7 @@ class EdgeLoRAEngine:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(self.device)  # el: allow[host-sync] -- _timed measures
 
     def _recurrent_leaves(self, args: Tuple) -> List[torch.Tensor]:
         """The engine cache's per-slot recurrent state (the leaves of its
@@ -563,16 +563,16 @@ class EdgeLoRAEngine:
             for t, v in zip(state, saved):
                 t.copy_(v)
             self._sync()
-            t0 = self._timer.perf_counter()
+            t0 = self._timer.perf_counter()  # el: allow[clock] -- _timed measures
             out = fn(*args)
             self._sync()
-            self._durations[key] = self._timer.perf_counter() - t0
+            self._durations[key] = self._timer.perf_counter() - t0  # el: allow[clock] -- _timed
         else:
-            t0 = self._timer.perf_counter()
+            t0 = self._timer.perf_counter()  # el: allow[clock] -- _timed measures
             out = fn(*args)
             self._sync()
             self._durations[key] = 0.5 * self._durations[key] + 0.5 * (
-                self._timer.perf_counter() - t0)
+                self._timer.perf_counter() - t0)  # el: allow[clock] -- _timed
         dt = self._durations[key] * self.ecfg.time_scale
         self.busy_time += dt
         tr = self.tracer
@@ -783,7 +783,9 @@ class EdgeLoRAEngine:
                                              now=now, requests=rids)
                         now += dt
                         self.router_steps += 1
-                        sb = np.asarray(sb)
+                        # scores_batch copies its scores to the host
+                        # (core/router.py): np.asarray only views them
+                        sb = np.asarray(sb)  # el: allow[host-sync] -- no-op
                         for i, slot in enumerate(group):
                             slot.sel_scores = sb[i]
                 for slot in self.slots.in_state(SlotState.SELECTING):
@@ -838,7 +840,7 @@ class EdgeLoRAEngine:
                                     requests=rids)
                                 now += dt
                                 self.router_steps += 1
-                                scores = np.asarray(sb)[0]
+                                scores = np.asarray(sb)[0]  # el: allow[host-sync] -- no-op
                             else:
                                 scores = np.asarray(self.router.scores(req))
                             slot.sel_scores = scores
@@ -980,7 +982,7 @@ class EdgeLoRAEngine:
                             self._to_device(sids), now=now, requests=rids)
                     now += dt
                     self.decode_steps += 1
-                    next_np = next_toks.cpu().numpy()
+                    next_np = next_toks.cpu().numpy()  # el: allow[host-sync] -- output stream
                     for slot in gen:
                         req = slot.request
                         slot.last_token = int(next_np[slot.index])
@@ -1252,7 +1254,7 @@ class EdgeLoRAEngine:
         self.prefill_steps += 1
         self.prefill_batch_hist[len(group)] = \
             self.prefill_batch_hist.get(len(group), 0) + 1
-        first_np = first.cpu().numpy()
+        first_np = first.cpu().numpy()  # el: allow[host-sync] -- output stream
         for i, slot in enumerate(group):
             req = slot.request
             slot.pos = req.prompt_len
@@ -1357,7 +1359,7 @@ class EdgeLoRAEngine:
         self.prefill_steps += 1
         self.prefill_batch_hist[len(group)] = \
             self.prefill_batch_hist.get(len(group), 0) + 1
-        first_np = first.cpu().numpy()
+        first_np = first.cpu().numpy()  # el: allow[host-sync] -- output stream
         for i, slot in enumerate(group):
             req = slot.request
             if req.prompt_len <= end:

@@ -150,7 +150,7 @@ def generate_trace(cfg: WorkloadConfig) -> List[Request]:
     use dedicated streams so enabling them never perturbs the main one."""
     # el: allow[rng-stream] -- the historical whole-trace main stream:
     # salting it now would shift every existing golden trace
-    rng = np.random.default_rng(cfg.seed)  # el: allow[rng-stream]
+    rng = np.random.default_rng(cfg.seed)  # el: allow[rng-stream] -- golden traces
     probs = adapter_popularity(cfg.n_adapters, cfg.alpha)
     shape = 1.0 / (cfg.cv ** 2)
     scale = cfg.cv ** 2 / cfg.request_rate

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing ``repro_torch`` (every
 submodule), ``chip_smoke`` and the port's scripts (the four
 ``examples/*_torch.py``, ``experiments/hillclimb_torch.py``,
-``tools/trace_report_torch.py``) pulls in neither JAX nor the ``repro``
-package, and no source of any of them imports them."""
+``tools/trace_report_torch.py``, ``tools/lint_torch/engine_lint.py``)
+pulls in neither JAX nor the ``repro`` package, and no source of any of
+them imports them."""
 import ast
 import os
 import subprocess
@@ -17,7 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SCRIPTS = (sorted((ROOT / "examples").glob("*_torch.py"))
            + [ROOT / "experiments" / "hillclimb_torch.py",
-              ROOT / "tools" / "trace_report_torch.py"])
+              ROOT / "tools" / "trace_report_torch.py",
+              ROOT / "tools" / "lint_torch" / "engine_lint.py"])
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", *SCRIPTS]
 
 _CHECK = """
@@ -38,7 +40,7 @@ print(len(names), bad)
 
 def test_import_leaves_jax_and_repro_out():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    assert len(SCRIPTS) == 6 and all(p.exists() for p in SCRIPTS)
+    assert len(SCRIPTS) == 7 and all(p.exists() for p in SCRIPTS)
     out = subprocess.run([sys.executable, "-c", _CHECK,
                           str(ROOT / "chip_smoke.py"), *map(str, SCRIPTS)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
