@@ -33,7 +33,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``paged_gather_pages`` at the paged decode step's shape (32 layers, 137 pages of 16 tokens × 8·128
    features, 8 rows × 17 table entries mixing shuffled pages, repeats
    and an idle all -1 row) in bf16 and f32, bit-equal to its plain
-   version, timed beside it, ``torch.index_select`` and its bound.
+   version, timed beside it, ``torch.index_select`` and its bound, with
+   the plan's vector width and its share of the bound.
    ``flash_decode`` at the decode step's layer (q [8, 32, 128], a
    256-entry ring [8, 256, 8, 128], per-row positions with one idle
    all -1 row) in bf16, f32 and int8 K/V, and ``flash_prefill`` at a
@@ -134,8 +135,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     4096/4608-entry rings (window 4096, softcap 50 for gemma2; gemma2's
     int8 ring with bf16 scales too, the scales' cast timed apart),
     ``flash_prefill`` at [2, 4352] past the window (chameleon: [8, 64]),
-    the page gather at gemma2's paged step (bf16 and int8 K pages, bf16
-    scale pages).
+    the page gather at gemma2's paged step at all 42 layers (21 groups x
+    8 rows x 289 entries: bf16 and int8 K pages, bf16 scale pages).
     gemma2-9b (full width, 12 of its 42 layers, which keeps the run
     inside its time: d 3584, 16/8 heads, hd 256, d_ff 14336, vocab
     256000, tied, local/global slots, window 4096, softcaps 50/30,
@@ -643,10 +644,12 @@ def kernel_phase(torch, dev, spec):
 def gather_phase(torch, dev, spec):
     """``paged_gather_pages`` against its plain version at the paged
     decode step's shape of ``spec``'s model (one attention leaf: its
-    layers, ``spec['max_ctx']``'s pages; by default bf16 and f32 pages of
-    K, ``spec['gather_cases']`` otherwise: (label, dtype, features per
-    token)); timed beside the plain version, ``torch.index_select`` and
-    its bound, with the wrapper's host µs per call."""
+    layer groups, ``spec['max_ctx']``'s pages; by default bf16 and f32
+    pages of K, ``spec['gather_cases']`` otherwise: (label, dtype,
+    features per token)); timed beside the plain version,
+    ``torch.index_select`` and its bound, with the wrapper's host µs per
+    call. Each row records the plan's route (its vector width) and the
+    share of the bound the kernel reached."""
     from repro_torch.kernels import paged_gather as pg
 
     gen = torch.Generator(device=dev).manual_seed(4321)
@@ -694,12 +697,16 @@ def gather_phase(torch, dev, spec):
         nbytes = (ng * distinct * page_bytes + got.numel()
                   * got.element_size() + tables.numel() * 4)
         bnd, by = bound_ms(nbytes, 0.0, "bfloat16")
-        rows.append(dict(
+        plan = pg.gather_plan(page_bytes, ng * b * mb, arena.data_ptr(),
+                              got.data_ptr())
+        row = dict(
             kernel="paged_gather_pages", model=spec["model"], dtype=dname,
             leaf=label, ng=ng,
             n_pages=n_pages, bs=bs, F=feat, B=b, MB=mb,
+            page_bytes=page_bytes, out_pages=ng * b * mb,
             distinct_pages=distinct, out_mb=got.numel()
             * got.element_size() / 1e6, max_abs_err=0.0,
+            route=f"vector {plan.vec_bytes} B", grid=plan.grid,
             ms=cuda_ms(torch, lambda: pg.paged_gather_pages(arena, tables),
                        flush),
             plain_ms=cuda_ms(torch, lambda: pg.paged_gather_pages_plain(
@@ -712,7 +719,9 @@ def gather_phase(torch, dev, spec):
             # the read-and-write-everything figure (every table entry's
             # page read, repeats and -1 included)
             bound_all_entries_ms=2 * got.numel() * got.element_size()
-            / HBM_BYTES_PER_S * 1e3))
+            / HBM_BYTES_PER_S * 1e3)
+        row["bound_frac"] = bnd / row["ms"]
+        rows.append(row)
         del arena, got, want, lib
         log(f"paged_gather_pages {label} ok: " + json.dumps(rows[-1]))
     return rows
@@ -2472,8 +2481,10 @@ def variants_phase(torch, dev):
         cfg.attn, kv_cache_quant=True))
     qspec = variant_spec(qcfg)
     rec = dict(kernel_rows=kernel_phase(torch, dev, spec),
+               # the gather needs no weights: all 42 layers' groups
                gather_rows=gather_phase(torch, dev, dict(
-                   spec, max_ctx=LONG_CTX, gather_cases=(
+                   spec, max_ctx=LONG_CTX,
+                   groups=42 // len(cfg.attn.layer_pattern), gather_cases=(
                        ("k bf16", "bfloat16", 8 * 256),
                        ("k int8", "int8", 8 * 256),
                        ("k_scale bf16", "bfloat16", 8)))),
@@ -4917,7 +4928,8 @@ def main(argv=None) -> int:
         launches=sum(by_serve.values()), launches_by_serve=by_serve,
         max_abs_err=max(r["max_abs_err"] for r in gather_rows + q_gather
                         + variant_rows("paged_gather_pages")),
-        **timing(g, gather_shape(g)), qwen2_0_5b=timing(qg, gather_shape(qg)),
+        **timing(g, gather_shape(g)), plan_route=g["route"],
+        bound_frac=g["bound_frac"], qwen2_0_5b=timing(qg, gather_shape(qg)),
         **variant_timings("paged_gather_pages")))
     # the attention kernels: times at each model's bf16 shape (decode
     # step; full prefill group)

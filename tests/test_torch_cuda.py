@@ -266,15 +266,34 @@ def test_cuda_sgmv_counts_one_launch_per_call(dev):
     assert sgmv.launches == {"sgmv_shrink": 1, "sgmv_expand": 1}
 
 
+def _gather_twice(arena, tables):
+    """Two kernel calls (bit-equal to each other, one launch counted
+    each); returns the first call's output and the plan it followed."""
+    paged_gather.reset_launches()
+    got = paged_gather.paged_gather_pages(arena, tables)
+    again = paged_gather.paged_gather_pages(arena, tables)
+    torch.cuda.synchronize()
+    assert paged_gather.launches == {"paged_gather_pages": 2}
+    assert torch.equal(got, again)
+    plan = paged_gather.gather_plan(
+        arena[0, 0].numel() * arena.element_size(),
+        arena.shape[0] * tables.numel(), arena.data_ptr(), got.data_ptr())
+    return got, plan
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8])
-@pytest.mark.parametrize("bs,f", [(16, 1024), (5, 3)])
+@pytest.mark.parametrize("bs,f", [(16, 1024), (5, 3), (1, 16388), (1, 8)])
 def test_cuda_paged_gather_matches_plain(dev, dtype, bs, f):
     """The page gather against its plain version: a copy, so bit-equal,
-    for any element type; tables mix shuffled pages, repeats and -1 (the
-    trash page), and 5·3-element pages (15 to 60 bytes) take the
-    narrow-vector paths. The launch counter counts the launch."""
+    for any element type; tables mix shuffled pages, repeats, -1 (the
+    trash page) and entries past either end. Pages of 16 KiB-64 KiB
+    (16·1024 elements: 16-byte vectors, several CTAs a page), 15 to 60
+    bytes (5·3: 1- and 4-byte vectors, several pages a CTA), 64 KiB + 16
+    bytes (1·16388 f32; 32 KiB + 8 bf16, 16 KiB + 4 int8: 16-, 8- and
+    4-byte vectors, blocks straddling pages) and 8 to 32 bytes (1·8).
+    Two calls are bit-equal, each counts one launch."""
     gen = torch.Generator(device=dev).manual_seed(1)
     ng, n_pages, b, mb = 3, 13, 8, 17
     arena = torch.randn(ng, n_pages, bs, f, generator=gen,
@@ -284,11 +303,12 @@ def test_cuda_paged_gather_matches_plain(dev, dtype, bs, f):
                                    device=dev)[:9].int()
     tables[1, :4] = torch.tensor([5, 5, 0, 12], dtype=torch.int32)
     tables[3, :mb] = torch.arange(mb, dtype=torch.int32) % n_pages
-    paged_gather.reset_launches()
-    got = paged_gather.paged_gather_pages(arena, tables)
+    tables[4, :3] = torch.tensor([n_pages, 2 * n_pages + 3, -n_pages - 2],
+                                 dtype=torch.int32)
+    got, plan = _gather_twice(arena, tables)
+    pb = bs * f * arena.element_size()
+    assert plan.vec_bytes == min(16, pb & -pb)
     want = paged_gather.paged_gather_pages_plain(arena.cpu(), tables.cpu())
-    torch.cuda.synchronize()
-    assert paged_gather.launches == {"paged_gather_pages": 1}
     assert got.shape == (ng, b, mb * bs, f) and got.dtype == dtype
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got[:, 2].cpu(), arena[:, -1:].expand(
@@ -997,25 +1017,78 @@ def test_cuda_flash_decode_int8_ring_with_bf16_scales(dev):
 
 
 @pytest.mark.cuda
-def test_cuda_paged_gather_int8_and_scale_pages(dev):
+@pytest.mark.parametrize("case", ["gemma2_reduced", "scale_48552",
+                                  "offset_2", "offset_8", "over_2gib",
+                                  "out_over_2p32"])
+def test_cuda_paged_gather_int8_and_scale_pages(dev, case):
     """The page gather on an int8 K arena [ng, pages, bs, KH, hd] and its
-    bf16 scale arena [ng, pages, bs, KH] (16-byte rows at KH 8): bit-equal
-    to the indexing route."""
+    bf16 scale arena [ng, pages, bs, KH] (16-byte rows at KH 8, 256-byte
+    pages), through ``ops.paged_gather``: bit-equal to the indexing
+    route, two calls bit-equal and one launch counted each. Cases: a
+    reduced gemma2 (``gemma2_reduced``); the scale leaf at gemma2-9b's
+    paged step, 21 groups x 8 rows x 289 entries = 48,552 output pages
+    of 256 bytes (``scale_48552``); an int8 K arena that starts 2 or 8
+    bytes into a larger buffer (``offset_*``: 2- and 8-byte vectors); a
+    64 KiB-page arena over 2^31 bytes whose tables name its last pages
+    (``over_2gib``); an output of 65,537 odd-sized int8 pages of 65,537
+    bytes, past 2^32 one-byte vectors, where the kernel's index split
+    leaves 32 bits (``out_over_2p32``)."""
     gen = torch.Generator(device=dev).manual_seed(10)
-    ng, n_pages, bs, kh, hd = 3, 20, 16, 8, 256
-    k = torch.randint(-127, 128, (ng, n_pages, bs, kh, hd), generator=gen,
-                      device=dev, dtype=torch.int8)
-    scale = torch.rand(ng, n_pages, bs, kh, generator=gen,
-                       device=dev).bfloat16()
     tables = torch.tensor([[3, 7, 1, -1], [19, 0, -1, -1], [-1] * 4],
                           dtype=torch.int32, device=dev)
-    paged_gather.reset_launches()
-    for arena in (k, scale):
+    if case == "gemma2_reduced":
+        ng, n_pages, bs, kh, hd = 3, 20, 16, 8, 256
+        arenas = [torch.randint(-127, 128, (ng, n_pages, bs, kh, hd),
+                                generator=gen, device=dev, dtype=torch.int8),
+                  torch.rand(ng, n_pages, bs, kh, generator=gen,
+                             device=dev).bfloat16()]
+    elif case == "scale_48552":
+        ng, n_pages, b, mb = 21, 2313, 8, 289
+        arenas = [torch.rand(ng, n_pages, 16, 8, generator=gen,
+                             device=dev).bfloat16()]
+        tables = torch.full((b, mb), -1, dtype=torch.int32, device=dev)
+        perm = torch.randperm(n_pages - 1, generator=gen, device=dev).int()
+        tables[:6] = perm[:6 * mb].view(6, mb)
+        tables[6, :40] = perm[:10].repeat(4)
+        tables[5, mb // 2:] = -1
+        assert ng * tables.numel() == 48552
+    elif case.startswith("offset_"):
+        off = int(case.split("_")[1])
+        shape = (3, 20, 16, 8, 64)
+        n = torch.Size(shape).numel()
+        buf = torch.randint(-127, 128, (n + 64,), generator=gen, device=dev,
+                            dtype=torch.int8)
+        arenas = [buf[off:off + n].view(shape)]
+        assert arenas[0].data_ptr() % 16 == off
+    elif case == "out_over_2p32":
+        side = 65537
+        arenas = [torch.randint(-127, 128, (1, 5, 1, side), generator=gen,
+                                device=dev, dtype=torch.int8)]
+        tables = (torch.arange(side, dtype=torch.int32, device=dev) % 7
+                  - 1).view(1, side)
+        assert side * side > 2 ** 32
+    else:
+        ng, n_pages, bs, kh, hd = 1, 32780, 16, 8, 256
+        arena = torch.empty((ng, n_pages, bs, kh, hd), dtype=torch.bfloat16,
+                            device=dev)
+        assert arena.numel() * arena.element_size() > 2 ** 31
+        arena[:, -40:].copy_(torch.randn(ng, 40, bs, kh, hd, generator=gen,
+                                         device=dev))
+        arena[:, :40].copy_(torch.randn(ng, 40, bs, kh, hd, generator=gen,
+                                        device=dev))
+        arenas = [arena]
+        tables = torch.tensor([[n_pages - 2, n_pages - 39, 3, -1],
+                               [n_pages - 2, 5, n_pages + 1, -2]],
+                              dtype=torch.int32, device=dev)
+    for arena in arenas:
+        paged_gather.reset_launches()
         got = ops.paged_gather(arena, tables)
+        again = ops.paged_gather(arena, tables)
         want = ops.paged_gather(arena, tables, use_kernel=False)
         torch.cuda.synchronize()
+        assert paged_gather.launches == {"paged_gather_pages": 2}
         assert got.dtype == arena.dtype and torch.equal(got, want)
-    assert paged_gather.launches == {"paged_gather_pages": 2}
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
