@@ -296,6 +296,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     524288-token context, and decode steps at positions 10, 10 000 and
     500 000.
 
+17. The kernels' whole domain (after phase 10, on phase 4's Llama-3.1-8B
+    weights). Kernel rows, each held against its plain version and timed
+    as in phase 3 (L2 flushed, the bound, the library call, the wrapper's
+    host µs): the SGMV pair at LoRA rank 128 at the decode step (8 rows,
+    d 4096) and the full prefill group (512 rows, d 14336), at rank 100
+    (not a multiple of 16) at the decode step, and at ``blk_t`` 256 over a
+    full group; ``flash_decode`` (q [8, 32, hd] over a 256-entry ring) and
+    ``flash_prefill`` ([8, 64, 32/8, hd] causal) in bf16 at head dims 96,
+    192 and 320 (no config of the repo has them: the rows are padded in
+    shared memory to the kernels' widths 96 and 192; 320 takes the
+    run-time width). Llama-3.1-8B at full width and depth with rank-128
+    adapters (5 modules, a pool of 8 slots, 16 adapters of 0.9 GB): the
+    four-route check of phase 9 (prefill [8, 64], 2 decode steps, an
+    idle row) and an ``edgelora`` dense serve of 8 requests under a fake
+    timer, 160 launches of each SGMV kernel an unmerged step call. The
+    same route check and a paged ``edgelora`` serve for Llama-3.1-8B's
+    widths at head dims 96 and 192, 4 of 32 layers.
+
 Each serve's kernel launch counts are zeroed just before it and read just
 after; every kernel its path runs must have launched.
 
@@ -368,7 +386,8 @@ B_STD = 1e-3
 
 # The shapes each kernel phase runs at, per model: LoRA pool slots and
 # rank, shrink d_in and expand d_out, the LoRA modules (d_in, d_out), the
-# (phase, T) cases, attention heads (h, kv heads, head dim) and layers.
+# (phase, T) cases, attention heads (h, kv heads, head dim) and layers;
+# optionally the SGMV token block (``blk_t``; default ``ops.auto_blk_t``).
 LLAMA_SPEC = dict(
     model="llama3.1-8b", r_pool=R_POOL, rank=RANK, shrink_d=SHRINK_D,
     expand_d=EXPAND_D, modules=MODULES, cases=CASES,
@@ -499,7 +518,7 @@ def kernel_phase(torch, dev, spec):
                         device=dev) * 0.01
         slots = torch.randint(0, r_pool, (t,), generator=gen, device=dev,
                               dtype=torch.int32)
-        blk_t = ops.auto_blk_t(t, r_pool)
+        blk_t = spec.get("blk_t") or ops.auto_blk_t(t, r_pool)
         plan = ops.plan_grouping(slots, r_pool, blk_t)
         xbuf = x.new_zeros((plan.n_padded, d_in))
         xbuf[plan.padded_pos.long()] = x[plan.perm]
@@ -622,14 +641,14 @@ def kernel_phase(torch, dev, spec):
             for mod, (d_in, d_out) in spec["modules"].items():
                 x, a, b, slots, _, _, _ = inputs(t, d_in, d_out, dtype)
                 got = ops.sgmv(x, a, b, slots, 2.0, n_slots=r_pool,
-                               blk_t=None)
+                               blk_t=spec.get("blk_t"))
                 want = (2.0 * ref.sgmv_ref(x, a.to(dtype), b.to(dtype),
                                            slots, 1.0)).to(dtype)
                 torch.cuda.synchronize()
                 e = err(got, want, dname)
                 def call():
                     return ops.sgmv(x, a, b, slots, 2.0, n_slots=r_pool,
-                                    blk_t=None)
+                                    blk_t=spec.get("blk_t"))
                 rows.append(dict(
                     kernel="ops.sgmv", model=model, phase=phase,
                     dtype=dname, T=t,
@@ -2175,6 +2194,130 @@ def route_check_phase(torch, dev, arch):
                       where=f"{arch} full-width bf16")
     del params
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the kernels' whole domain: LoRA rank 128 at full width and
+# depth, a rank off the 16-rank tiles, blk_t 256, head dims 96, 192, 320
+# ---------------------------------------------------------------------------
+
+DOMAIN_RANK = 128
+# the rank-128 pool: 8 adapters of ~0.9 GB (226 M f32 values) each
+DOMAIN_SLOTS = 8
+DOMAIN_ADAPTERS = 16      # twice the pool: the serve swaps adapters in
+DOMAIN_HEAD_DIMS = (96, 192)
+DOMAIN_HD_LAYERS = 4      # the head-dim variants' depth (of 32)
+DOMAIN_LENGTHS = (64, 60, 50, 40, 33, 20, 9, 64)
+
+
+def domain_trace(cfg, seed):
+    """8 requests of a burst over ``DOMAIN_ADAPTERS`` adapters: prompts of
+    8-64 tokens, outputs of 8-16."""
+    from repro_torch.serving.workload import WorkloadConfig, generate_trace
+    trace = generate_trace(WorkloadConfig(
+        n_adapters=DOMAIN_ADAPTERS, request_rate=200.0, duration=0.1,
+        input_range=(8, 64), output_range=(8, 16),
+        vocab_size=cfg.vocab_size, seed=seed))[:8]
+    check(len(trace) == 8, f"domain trace of {len(trace)} requests")
+    return trace
+
+
+def domain_phase(torch, dev, shared):
+    """Phase 17 (see the module docstring). Returns its record by model:
+    kernel rows at the new ranks, token block and head dims, route checks
+    and serves."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    out = {}
+    base = dict(LLAMA_SPEC, r_pool=DOMAIN_SLOTS, dtypes=("bfloat16",))
+    kernel_rows = []
+    for extra in (
+            # rank 128 at the decode step (d 4096) and the full prefill
+            # group (512 rows; d 14336 in and out)
+            dict(model="llama3.1-8b-r128", rank=DOMAIN_RANK,
+                 shrink_d=(4096, 14336), expand_d=(4096, 14336),
+                 modules={"up": (4096, 14336)},
+                 cases=[("decode", N_SLOTS), ("prefill", 512)]),
+            # a rank that is not a multiple of 16 (two chunks, the second
+            # ragged), at the decode step
+            dict(model="llama3.1-8b-r100", rank=100, shrink_d=(4096,),
+                 expand_d=(4096,), modules={"q": (4096, 4096)},
+                 cases=[("decode", N_SLOTS)]),
+            # blocks of 256 rows (two 128-row slices each), a full group
+            dict(model="llama3.1-8b-blk256", rank=RANK, blk_t=256,
+                 shrink_d=(4096,), expand_d=(4096,),
+                 modules={"q": (4096, 4096)}, cases=[("prefill", 512)])):
+        kernel_rows += [r for r in kernel_phase(torch, dev, dict(base,
+                                                                 **extra))
+                        if r["kernel"] != "event_floor"]
+    for r in kernel_rows:
+        log("  " + json.dumps(r))
+    attention_rows = []
+    for hd in (*DOMAIN_HEAD_DIMS, 320):
+        attention_rows += attention_phase(torch, dev, dict(
+            LLAMA_SPEC, model=f"llama3.1-8b-hd{hd}",
+            heads=(N_HEADS, N_KV_HEADS, hd)), full=False)
+    log(f"  domain kernel rows {time.perf_counter() - t0:.1f}s")
+
+    # Llama-3.1-8B at full width and depth on phase 4's weights, rank-128
+    # adapters: a route check and a serve
+    cfg = shared["cfg"]
+    cfg = dataclasses.replace(cfg, lora=dataclasses.replace(
+        cfg.lora, rank=DOMAIN_RANK, max_resident=DOMAIN_SLOTS,
+        n_adapters=DOMAIN_ADAPTERS))
+    check(cfg.n_layers == 32 and cfg.d_model == 4096, "not llama3-8b")
+    spec = variant_spec(cfg)
+    check(spec["rank"] == DOMAIN_RANK and len(spec["modules"]) == 5,
+          f"rank-128 spec {spec['rank']}, {spec['modules']}")
+    values = DOMAIN_RANK * cfg.n_layers * sum(
+        a + b for a, b in spec["modules"].values())
+    log(f"llama3.1-8b rank {DOMAIN_RANK}: adapters of {values / 1e6:.1f} M "
+        f"values ({4 * values / 1e9:.2f} GB in the f32 pool), a pool of "
+        f"{DOMAIN_SLOTS}")
+    rec = dict(kernel_rows=kernel_rows, attention_rows=attention_rows)
+    rec["route_check"] = route_check(
+        torch, dev, cfg, shared["params"], spec, ROUTES,
+        lengths=DOMAIN_LENGTHS, s=64, decode_steps=2, idle_row=True,
+        where="llama3.1-8b rank 128 bf16")
+    eng = _variant_engine(torch, dev, cfg, shared["params"],
+                          make_adapter_source(torch, dev, cfg), "edgelora",
+                          "dense")
+    rec["serve_dense"] = _summaries({"run": qwen2_serve(
+        torch, dev, "llama3.1-8b rank 128 edgelora dense", eng,
+        domain_trace(cfg, 26), spec)})["run"]
+    check(rec["serve_dense"]["unmerged_calls"] > 0,
+          "rank 128: no unmerged step")
+    del eng
+    _release(torch)
+    out["llama3.1-8b-r128"] = rec
+
+    # head dims 96 and 192 at Llama-3.1-8B's widths, reduced depth
+    for hd in DOMAIN_HEAD_DIMS:
+        cfg = get_config("llama3-8b")
+        cfg = dataclasses.replace(
+            cfg, head_dim=hd, n_layers=DOMAIN_HD_LAYERS,
+            lora=dataclasses.replace(cfg.lora, n_adapters=DOMAIN_ADAPTERS))
+        check(cfg.resolved_head_dim == hd, f"head dim {hd}")
+        spec = variant_spec(cfg)
+        params = _variant_params(torch, dev, cfg, 30 + hd)
+        rec = dict(route_check=route_check(
+            torch, dev, cfg, params, spec, ROUTES, lengths=DOMAIN_LENGTHS,
+            s=64, decode_steps=2, idle_row=True,
+            where=f"llama3.1-8b hd {hd} bf16"))
+        eng = _variant_engine(torch, dev, cfg, params,
+                              make_adapter_source(torch, dev, cfg),
+                              "edgelora", "paged")
+        rec["serve_paged"] = _summaries({"run": qwen2_serve(
+            torch, dev, f"llama3.1-8b hd {hd} edgelora paged", eng,
+            domain_trace(cfg, hd), spec)})["run"]
+        del eng, params
+        _release(torch)
+        out[f"llama3.1-8b-hd{hd}"] = rec
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4766,6 +4909,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     learned = learned_router_phase(torch, dev, shared)
     log(f"learned-router phase {time.perf_counter() - t0:.1f}s")
+    _release(torch)
+
+    # ---- 17. the kernels' whole domain (on phase 4's weights) ------------
+    domain = domain_phase(torch, dev, shared)
+    log(f"domain phase {domain['seconds']:.1f}s")
     del shared
     _release(torch)
 
@@ -4828,7 +4976,8 @@ def main(argv=None) -> int:
         if isinstance(runs, dict) and "dense" in runs:
             for kv, run in runs.items():
                 serves[f"qwen2_{key}_{kv}"] = run["launches"]
-    for arch, rec in {**variants, **moe, **ssm}.items():
+    domain_recs = {k: v for k, v in domain.items() if k != "seconds"}
+    for arch, rec in {**variants, **moe, **ssm, **domain_recs}.items():
         for key, runs in rec.items():
             if not key.startswith("serve_"):
                 continue
@@ -4861,14 +5010,15 @@ def main(argv=None) -> int:
                     shape=shape, **extra)
 
     def variant_rows(name):
-        """Every row of kernel ``name`` at phases 11-14's shapes."""
+        """Every row of kernel ``name`` at phases 11-14's and 17's
+        shapes."""
         out, table = [], {"sgmv_shrink": "kernel_rows",
                           "sgmv_expand": "kernel_rows",
                           "paged_gather_pages": "gather_rows",
                           "flash_decode": "attention_rows",
                           "flash_prefill": "attention_rows"}[name]
         for rec in (*variants.values(), *moe.values(), *ssm.values(),
-                    *whisper.values()):
+                    *whisper.values(), *domain_recs.values()):
             out += [r for r in rec.get(table, []) if r["kernel"] == name]
         return out
 
@@ -4967,6 +5117,7 @@ def main(argv=None) -> int:
              qwen2_attention_rows=q_attention, qwen2=qwen2,
              route_checks=routes, learned_router=learned,
              variants=variants, moe=moe, ssm=ssm, whisper=whisper,
+             domain=domain,
              distributed=distributed, examples=examples, caches=caches,
              seconds=time.perf_counter() - t_start), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f}s")

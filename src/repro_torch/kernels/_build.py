@@ -17,6 +17,7 @@ kernels (wgmma, setmaxnreg).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -48,6 +49,17 @@ def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
             f"{name}: an input requires grad, but the CUDA kernel has no "
             "backward; run it under torch.no_grad() / inference_mode(), "
             "or take the plain PyTorch route to differentiate")
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)`` when ``device`` is not the current
+    card, else a null context. A kernel launches on the current device
+    with the stream it is given, so each wrapper launches inside this: on
+    the card of its tensors, paying for a device switch only when they are
+    not on the current one."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def nvcc() -> str:

@@ -1,6 +1,6 @@
 // Pieces shared by the two attention kernels (decode_attention.cu,
 // flash_prefill.cu): element conversion, the position mask, warp
-// reductions, the f32 tile loader of the scalar prefill template, and
+// reductions, the f32 tile loader of the scalar prefill templates, and
 // inline PTX for Hopper's asynchronous copies (cp.async), shared-memory
 // matrix loads (ldmatrix) and bf16 tensor-core products (mma.sync); the
 // SGMV kernels (sgmv.cu) use the inline PTX too.
@@ -67,23 +67,32 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Copy rows [0, n) of a [n, HD] tile into shared memory as f32, row r from
+// Copy rows [0, n) of a [n, hd] tile into shared memory as f32, padded
+// with zeros to `width` columns (a multiple of 16 bytes of T), row r from
 // src + r * row_stride, to dst + r * dst_stride. 16-byte vector loads,
-// neighbouring threads on neighbouring addresses; each element read once.
-template <typename T, int HD>
+// neighbouring threads on neighbouring addresses, each element read once:
+// every vector with EXACT (hd = width, rows of whole, aligned vectors),
+// else the vectors below hd when `vec` and element by element past them.
+template <typename T, bool EXACT>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src, int64_t row_stride,
-                                          int n, float* dst, int dst_stride) {
+                                          int n, float* dst, int dst_stride, int hd, int width,
+                                          bool vec) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecPerRow = HD / kVec;
-  static_assert(HD % kVec == 0, "head dim must fill whole 16-byte vectors");
-  for (int i = threadIdx.x; i < n * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int j = (i % kVecPerRow) * kVec;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * row_stride + j);
-    const T* e = reinterpret_cast<const T*>(&raw);
+  const int per_row = width / kVec;
+  for (int i = threadIdx.x; i < n * per_row; i += kThreads) {
+    const int r = i / per_row;
+    const int j = (i % per_row) * kVec;
+    const T* s = src + r * row_stride + j;
     float* d = dst + r * dst_stride + j;
+    if (EXACT || (vec && j + kVec <= hd)) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(s);
+      const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int u = 0; u < kVec; ++u) d[u] = to_f(e[u]);
+      for (int u = 0; u < kVec; ++u) d[u] = to_f(e[u]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < kVec; ++u) d[u] = j + u < hd ? to_f(s[u]) : 0.0f;
+    }
   }
 }
 

@@ -62,10 +62,19 @@
 //     V, exactly as one long walk.
 // Entries past C are not keys and join no sum.
 //
-// Head dims 32, 64, 80, 128 and 256. At 80 (zamba2's shared block) a bf16
-// row is 160 bytes, 10 cp.async chunks (f32 20, int8 5), and every shared
-// array starts on 16 bytes: K rows of 88 bf16 / 84 f32 / 96 int8, V rows of
-// 80, so q_s (read as float4) lands at a multiple of 16 for any split.
+// Any head dim. The kernel is built for the widths 32, 64, 80, 96, 128,
+// 160, 192 and 256 (kWidths), and at any multiple of 16 above 256 with the
+// width a run-time argument (HDP = 0: the same code, loops not unrolled).
+// A head dim hd runs at the width hdp the wrapper gives it: the next built
+// width, or hd rounded up to 16 above 256 (decode_attention.padded_head_dim).
+// Each row of K, V and q is padded in shared memory from hd to hdp with
+// zeros: a zero column adds an exact zero to q.k, and the padded columns
+// of the output are never stored, so padding changes no value. Rows whose
+// bytes are whole 16-byte vectors (and 16-byte aligned) load by cp.async,
+// others element by element. At 80 (zamba2's shared block) a bf16 row is
+// 160 bytes, 10 cp.async chunks (f32 20, int8 5); every shared array
+// starts on 16 bytes: K rows of hdp + 16 bytes, V rows of hdp, so q_s
+// (read as float4) lands at a multiple of 16 for any split.
 //
 // Plain C interface, built with nvcc and bound with ctypes
 // (repro_torch/kernels/_build.py, repro_torch/kernels/decode_attention.py).
@@ -84,38 +93,47 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 // Shared memory of one split CTA, in bytes, laid out as
-//   k_s [n][HD + pad] TKV | v_s [n][HD] TKV | q_s [g][HD] f32 | p_s [g][n] f32
+//   k_s [n][hdp + pad] TKV | v_s [n][hdp] TKV | q_s [g][hdp] f32 | p_s [g][n] f32
 //   | m_s, l_s [g] f32 | ks_s, vs_s [n] f32 (int8 only) | kp_s [n] int
 // K rows are padded by 16 bytes so that the lanes of a warp, one key each,
 // read 16-byte vectors without bank conflicts.
-template <typename TKV, int HD> struct SplitSmem {
-  static constexpr int kKStride = HD + 16 / static_cast<int>(sizeof(TKV));
-  static constexpr bool kQuant = sizeof(TKV) == 1;
-  static size_t bytes(int g, int n) {
-    return sizeof(TKV) * static_cast<size_t>(n) * (kKStride + HD) +
-           sizeof(float) * (static_cast<size_t>(g) * (HD + n + 2) + (kQuant ? 2 * n : 0)) +
-           sizeof(int) * static_cast<size_t>(n);
-  }
-};
+__host__ __device__ inline int k_stride(int hdp, int kv_size) { return hdp + 16 / kv_size; }
 
-// q_row . k_row over HD: K read as 16-byte vectors in its storage type and
-// widened in registers, q (f32 in shared memory) as float4
-template <typename T, int HD>
-__device__ __forceinline__ float dot_row(const float* qr, const T* kr) {
+inline size_t split_smem_bytes(int kv_size, int hdp, int g, int n) {
+  const bool quant = kv_size == 1;
+  return static_cast<size_t>(kv_size) * n * (k_stride(hdp, kv_size) + hdp) +
+         sizeof(float) * (static_cast<size_t>(g) * (hdp + n + 2) + (quant ? 2 * n : 0)) +
+         sizeof(int) * static_cast<size_t>(n);
+}
+
+// s += q[j..j+kVec) . k[j..j+kVec): K read as one 16-byte vector in its
+// storage type and widened in registers, q (f32 in shared memory) as float4
+template <typename T>
+__device__ __forceinline__ void dot_vec(float4& s, const float* qr, const T* kr, int j) {
+  constexpr int kVec = 16 / sizeof(T);
+  const uint4 raw = *reinterpret_cast<const uint4*>(kr + j);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int u = 0; u < kVec; u += 4) {
+    const float4 qv = *reinterpret_cast<const float4*>(qr + j + u);
+    s.x = fmaf(qv.x, attn::to_f(e[u]), s.x);
+    s.y = fmaf(qv.y, attn::to_f(e[u + 1]), s.y);
+    s.z = fmaf(qv.z, attn::to_f(e[u + 2]), s.z);
+    s.w = fmaf(qv.w, attn::to_f(e[u + 3]), s.w);
+  }
+}
+
+// q_row . k_row over the padded width (HDP, or hdp when HDP = 0)
+template <typename T, int HDP>
+__device__ __forceinline__ float dot_row(const float* qr, const T* kr, int hdp) {
   constexpr int kVec = 16 / sizeof(T);
   float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // four short FMA chains, not one long one
+  if constexpr (HDP > 0) {
 #pragma unroll
-  for (int j = 0; j < HD; j += kVec) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(kr + j);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int u = 0; u < kVec; u += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(qr + j + u);
-      s.x = fmaf(qv.x, attn::to_f(e[u]), s.x);
-      s.y = fmaf(qv.y, attn::to_f(e[u + 1]), s.y);
-      s.z = fmaf(qv.z, attn::to_f(e[u + 2]), s.z);
-      s.w = fmaf(qv.w, attn::to_f(e[u + 3]), s.w);
-    }
+    for (int j = 0; j < HDP; j += kVec) dot_vec(s, qr, kr, j);
+  } else {
+#pragma unroll 2
+    for (int j = 0; j < hdp; j += kVec) dot_vec(s, qr, kr, j);
   }
   return (s.x + s.y) + (s.z + s.w);
 }
@@ -132,7 +150,9 @@ __device__ __forceinline__ float2 load_pair(const int8_t* p) {
   return make_float2(static_cast<float>(v.x), static_cast<float>(v.y));
 }
 
-template <typename TQ, typename TKV, int HD>
+// HDP: the padded width the kernel is built for, 0 for a run-time one
+// (hdp). hd: the head dim in memory; vec: K/V rows load as 16-byte vectors.
+template <typename TQ, typename TKV, int HDP>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                           const TKV* __restrict__ v, const float* __restrict__ k_scale,
@@ -141,11 +161,14 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                           float* __restrict__ part_acc, float* __restrict__ part_ml,
                           int* __restrict__ arrived, int c_len, int kh_n, int g,
                           int keys_per_split, float scale, int window, int chunked,
-                          float softcap) {
-  using Smem = SplitSmem<TKV, HD>;
-  constexpr int KS = Smem::kKStride;
-  constexpr int kChunks = HD * static_cast<int>(sizeof(TKV)) / 16;  // 16-byte pieces a row
-  static_assert(HD * sizeof(TKV) % 16 == 0, "head dim must fill whole 16-byte vectors");
+                          float softcap, int hd, int hdp_arg, bool vec) {
+  constexpr bool kQuant = sizeof(TKV) == 1;
+  constexpr int kVecKV = 16 / static_cast<int>(sizeof(TKV));
+  static_assert(HDP * sizeof(TKV) % 16 == 0, "the width must fill whole 16-byte vectors");
+  const int hdp = HDP > 0 ? HDP : hdp_arg;
+  const int KS = k_stride(hdp, sizeof(TKV));
+  const int kChunks = hdp / kVecKV;                 // 16-byte pieces of a shared row
+  const int src_chunks = vec ? hd / kVecKV : 0;     // ... that a K/V row has in memory
   const int split = blockIdx.x;
   const int n_splits = gridDim.x;
   const int bk = blockIdx.y;  // b * kh_n + kh
@@ -159,27 +182,36 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TKV* k_s = reinterpret_cast<TKV*>(smem_raw);
   TKV* v_s = k_s + static_cast<size_t>(keys_per_split) * KS;
-  float* q_s = reinterpret_cast<float*>(v_s + static_cast<size_t>(keys_per_split) * HD);
-  float* p_s = q_s + g * HD;
+  float* q_s = reinterpret_cast<float*>(v_s + static_cast<size_t>(keys_per_split) * hdp);
+  float* p_s = q_s + g * hdp;
   float* m_s = p_s + g * keys_per_split;
   float* l_s = m_s + g;
   float* ks_s = l_s + g;
-  float* vs_s = ks_s + (Smem::kQuant ? keys_per_split : 0);
-  int* kp_s = reinterpret_cast<int*>(vs_s + (Smem::kQuant ? keys_per_split : 0));
+  float* vs_s = ks_s + (kQuant ? keys_per_split : 0);
+  int* kp_s = reinterpret_cast<int*>(vs_s + (kQuant ? keys_per_split : 0));
   __shared__ int last_s;
 
-  // 1. every K/V load of the split at once, in the storage type; the
-  // positions and q load meanwhile
+  // 1. every K/V load of the split at once, in the storage type (zeros
+  // past hd); the positions and q load meanwhile
   const int64_t e0 = (static_cast<int64_t>(b) * c_len + c0) * kh_n + kh;  // entry (b, c0, kh)
-  const int64_t row_stride = static_cast<int64_t>(kh_n) * HD;            // entry c -> c + 1
+  const int64_t row_stride = static_cast<int64_t>(kh_n) * hd;            // entry c -> c + 1
   for (int i = tid; i < nc * kChunks; i += kThreads) {
     const int c = i / kChunks;
-    const int j = (i % kChunks) * (16 / static_cast<int>(sizeof(TKV)));
-    const int64_t src = e0 * HD + c * row_stride + j;
-    attn::cp_async16(k_s + c * KS + j, k + src);
-    attn::cp_async16(v_s + c * HD + j, v + src);
+    const int jc = i % kChunks;
+    const int j = jc * kVecKV;
+    const int64_t src = e0 * hd + c * row_stride + j;
+    if (jc < src_chunks) {
+      attn::cp_async16(k_s + c * KS + j, k + src);
+      attn::cp_async16(v_s + c * hdp + j, v + src);
+    } else {
+#pragma unroll
+      for (int u = 0; u < kVecKV; ++u) {
+        k_s[c * KS + j + u] = j + u < hd ? k[src + u] : TKV();
+        v_s[c * hdp + j + u] = j + u < hd ? v[src + u] : TKV();
+      }
+    }
   }
-  if (Smem::kQuant) {
+  if (kQuant) {
     for (int c = tid; c < nc; c += kThreads) {
       attn::cp_async4(ks_s + c, k_scale + e0 + static_cast<int64_t>(c) * kh_n);
       attn::cp_async4(vs_s + c, v_scale + e0 + static_cast<int64_t>(c) * kh_n);
@@ -194,8 +226,11 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     kp_s[c] = kp;
     mine |= attn::key_valid(qp, kp, true, window, is_chunked);
   }
-  const TQ* qb = q + static_cast<int64_t>(bk) * g * HD;  // the group's g rows are contiguous
-  for (int i = tid; i < g * HD; i += kThreads) q_s[i] = attn::to_f(qb[i]);
+  const TQ* qb = q + static_cast<int64_t>(bk) * g * hd;  // the group's g rows are contiguous
+  for (int i = tid; i < g * hdp; i += kThreads) {
+    const int r = i / hdp, d = i % hdp;
+    q_s[i] = d < hd ? attn::to_f(qb[r * hd + d]) : 0.0f;
+  }
 
   // 2. a split with no key of the row adds exactly nothing to its softmax
   // if the row has a key elsewhere; a row with none walks every entry
@@ -220,8 +255,8 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     for (int i = tid; i < g * nc; i += kThreads) {
       const int r = i / nc;
       const int c = i % nc;
-      float s = dot_row<TKV, HD>(q_s + r * HD, k_s + c * KS);
-      if (Smem::kQuant) s *= ks_s[c];
+      float s = dot_row<TKV, HDP>(q_s + r * hdp, k_s + c * KS, hdp);
+      if (kQuant) s *= ks_s[c];
       s *= scale;
       if (softcap > 0.0f) s = tanhf(s / softcap) * softcap;
       p_s[r * keys_per_split + c] =
@@ -237,7 +272,7 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       float sum = 0.0f;
       for (int c = lane; c < nc; c += 32) {
         const float p = expf(pr[c] - mx);
-        pr[c] = Smem::kQuant ? p * vs_s[c] : p;  // int8: the V scale folds into p
+        pr[c] = kQuant ? p * vs_s[c] : p;  // int8: the V scale folds into p
         sum += p;
       }
       sum = attn::warp_sum(sum);
@@ -248,26 +283,27 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     }
     __syncthreads();
 
-    // acc = sum_c p_c v_c, two adjacent columns a thread; out or the partial
-    for (int i = tid; i < g * HD / 2; i += kThreads) {
-      const int r = i / (HD / 2);
-      const int d = 2 * (i % (HD / 2));
+    // acc = sum_c p_c v_c, two adjacent columns a thread; out (the columns
+    // below hd) or the partial
+    for (int i = tid; i < g * hdp / 2; i += kThreads) {
+      const int r = i / (hdp / 2);
+      const int d = 2 * (i % (hdp / 2));
       const float* pr = p_s + r * keys_per_split;
       float a0 = 0.0f;
       float a1 = 0.0f;
 #pragma unroll 4
       for (int c = 0; c < nc; ++c) {
-        const float2 vv = load_pair(v_s + c * HD + d);
+        const float2 vv = load_pair(v_s + c * hdp + d);
         a0 = fmaf(pr[c], vv.x, a0);
         a1 = fmaf(pr[c], vv.y, a1);
       }
       if (n_splits == 1) {
         const float inv = 1.0f / fmaxf(l_s[r], 1e-30f);
-        TQ* o = out + (static_cast<int64_t>(bk) * g + r) * HD + d;
-        o[0] = attn::from_f<TQ>(a0 * inv);
-        o[1] = attn::from_f<TQ>(a1 * inv);
+        TQ* o = out + (static_cast<int64_t>(bk) * g + r) * hd + d;
+        if (d < hd) o[0] = attn::from_f<TQ>(a0 * inv);
+        if (d + 1 < hd) o[1] = attn::from_f<TQ>(a1 * inv);
       } else {
-        float* pa = part_acc + (pidx * g + r) * HD + d;
+        float* pa = part_acc + (pidx * g + r) * hdp + d;
         pa[0] = a0;
         pa[1] = a1;
       }
@@ -291,13 +327,13 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   __threadfence();
   if (tid == 0) arrived[bk] = 0;  // ready for the next call on this stream
   const float* ml = part_ml + static_cast<int64_t>(bk) * n_splits * g * 2;
-  const float* pa = part_acc + static_cast<int64_t>(bk) * n_splits * g * HD;
+  const float* pa = part_acc + static_cast<int64_t>(bk) * n_splits * g * hdp;
   // one thread per (query row, 4 columns); splits taken 8 at a time, their
   // L2 reads issued together, merged in split order with a running max
   constexpr int kBatch = 8;
-  for (int i = tid; i < g * HD / 4; i += kThreads) {
-    const int r = i / (HD / 4);
-    const int d = 4 * (i % (HD / 4));
+  for (int i = tid; i < g * hdp / 4; i += kThreads) {
+    const int r = i / (hdp / 4);
+    const int d = 4 * (i % (hdp / 4));
     float m = kNegInf;
     float l = 0.0f;
     float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -309,7 +345,7 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         const int s = min(s0 + u, n_splits - 1);
         mls[u] = __ldcg(reinterpret_cast<const float2*>(ml + (s * g + r) * 2));
         as[u] = __ldcg(
-            reinterpret_cast<const float4*>(pa + (static_cast<int64_t>(s) * g + r) * HD + d));
+            reinterpret_cast<const float4*>(pa + (static_cast<int64_t>(s) * g + r) * hdp + d));
       }
       float m_new = m;
 #pragma unroll
@@ -335,57 +371,60 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       m = m_new;
     }
     const float inv = 1.0f / fmaxf(l, 1e-30f);
-    TQ* o = out + (static_cast<int64_t>(bk) * g + r) * HD + d;
-    o[0] = attn::from_f<TQ>(a.x * inv);
-    o[1] = attn::from_f<TQ>(a.y * inv);
-    o[2] = attn::from_f<TQ>(a.z * inv);
-    o[3] = attn::from_f<TQ>(a.w * inv);
+    TQ* o = out + (static_cast<int64_t>(bk) * g + r) * hd + d;
+    if (d < hd) o[0] = attn::from_f<TQ>(a.x * inv);
+    if (d + 1 < hd) o[1] = attn::from_f<TQ>(a.y * inv);
+    if (d + 2 < hd) o[2] = attn::from_f<TQ>(a.z * inv);
+    if (d + 3 < hd) o[3] = attn::from_f<TQ>(a.w * inv);
   }
 }
 
-template <typename TQ, typename TKV, int HD>
+template <typename TQ, typename TKV, int HDP>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
                    const float* vs, const int* kv_pos, const int* q_pos, void* out,
                    float* part_acc, float* part_ml, int* arrived, int b, int c, int kh,
                    int g, int keys_per_split, int n_splits, float scale, int window,
-                   int chunked, float softcap, cudaStream_t stream) {
-  auto kernel = flash_decode_split_kernel<TQ, TKV, HD>;
-  const size_t smem = SplitSmem<TKV, HD>::bytes(g, keys_per_split);
+                   int chunked, float softcap, int hd, int hdp, cudaStream_t stream) {
+  auto kernel = flash_decode_split_kernel<TQ, TKV, HDP>;
+  const size_t smem = split_smem_bytes(sizeof(TKV), hdp, g, keys_per_split);
   cudaError_t err = attn::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
+  // 16-byte copies take rows of whole, aligned 16-byte vectors
+  const bool vec = hd * sizeof(TKV) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const dim3 grid(n_splits, b * kh);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks,
       vs, kv_pos, q_pos, static_cast<TQ*>(out), part_acc, part_ml, arrived, c, kh, g,
-      keys_per_split, scale, window, chunked, softcap);
+      keys_per_split, scale, window, chunked, softcap, hd, hdp, vec);
   return cudaGetLastError();
 }
 
+// The kernel built for width hdp: one of kWidths, or the run-time width
+// above 256
 template <typename TQ, typename TKV>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
+cudaError_t dispatch_hd(int hd, int hdp, const void* q, const void* k, const void* v,
                         const float* ks, const float* vs, const int* kv_pos,
                         const int* q_pos, void* out, float* pa, float* pm, int* ar, int b, int c,
                         int kh, int g, int kps, int ns, float scale, int window,
                         int chunked, float softcap, cudaStream_t st) {
-  switch (hd) {
-    case 32:
-      return launch<TQ, TKV, 32>(q, k, v, ks, vs, kv_pos, q_pos, out, pa, pm, ar, b, c, kh, g,
-                                 kps, ns, scale, window, chunked, softcap, st);
-    case 64:
-      return launch<TQ, TKV, 64>(q, k, v, ks, vs, kv_pos, q_pos, out, pa, pm, ar, b, c, kh, g,
-                                 kps, ns, scale, window, chunked, softcap, st);
-    case 80:
-      return launch<TQ, TKV, 80>(q, k, v, ks, vs, kv_pos, q_pos, out, pa, pm, ar, b, c, kh, g,
-                                 kps, ns, scale, window, chunked, softcap, st);
-    case 128:
-      return launch<TQ, TKV, 128>(q, k, v, ks, vs, kv_pos, q_pos, out, pa, pm, ar, b, c, kh, g,
-                                  kps, ns, scale, window, chunked, softcap, st);
-    case 256:
-      return launch<TQ, TKV, 256>(q, k, v, ks, vs, kv_pos, q_pos, out, pa, pm, ar, b, c, kh, g,
-                                  kps, ns, scale, window, chunked, softcap, st);
+#define DECODE_AT(W)                                                                          \
+  launch<TQ, TKV, W>(q, k, v, ks, vs, kv_pos, q_pos, out, pa, pm, ar, b, c, kh, g, kps, ns,   \
+                     scale, window, chunked, softcap, hd, hdp, st)
+  switch (hdp) {
+    case 32: return DECODE_AT(32);
+    case 64: return DECODE_AT(64);
+    case 80: return DECODE_AT(80);
+    case 96: return DECODE_AT(96);
+    case 128: return DECODE_AT(128);
+    case 160: return DECODE_AT(160);
+    case 192: return DECODE_AT(192);
+    case 256: return DECODE_AT(256);
     default:
+      if (hdp > 256 && hdp % 16 == 0) return DECODE_AT(0);
       return cudaErrorInvalidValue;
   }
+#undef DECODE_AT
 }
 
 }  // namespace
@@ -393,17 +432,21 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype codes: 0 float32, 1 bfloat16, 2 int8 (K/V only, with both scales).
-// window <= 0: no window; softcap <= 0: no softcap. The splits must cover
+// hd: the head dim; hdp: the padded width it runs at (one of 32, 64, 80, 96,
+// 128, 160, 192, 256, or a multiple of 16 above 256; at least hd), which
+// also sizes part_acc. window <= 0: no window; softcap <= 0: no softcap.
+// The splits must cover
 // C exactly, none empty: (n_splits - 1) * keys_per_split < C <=
 // n_splits * keys_per_split; part_acc / part_ml are needed when n_splits > 1.
 int flash_decode_launch(const void* q, const void* k, const void* v, const void* k_scale,
                         const void* v_scale, const void* kv_pos, const void* q_pos,
                         void* out, void* part_acc, void* part_ml, void* arrived, int b,
                         int c, int kh,
-                        int g, int hd, int q_dtype, int kv_dtype, int keys_per_split,
+                        int g, int hd, int hdp, int q_dtype, int kv_dtype, int keys_per_split,
                         int n_splits, float scale, int window, int chunked, float softcap,
                         void* stream) {
   if (b <= 0 || c <= 0 || kh <= 0 || g <= 0 || b * kh > 65535 || keys_per_split <= 0 ||
+      hd <= 0 || hd > hdp ||
       n_splits <= 0 || static_cast<int64_t>(n_splits) * keys_per_split < c ||
       static_cast<int64_t>(n_splits - 1) * keys_per_split >= c)
     return cudaErrorInvalidValue;
@@ -420,20 +463,20 @@ int flash_decode_launch(const void* q, const void* k, const void* v, const void*
   const bool quant = kv_dtype == 2;
   if (quant != (ks != nullptr && vs != nullptr)) return cudaErrorInvalidValue;
   if (q_dtype == 0 && kv_dtype == 0)
-    return dispatch_hd<float, float>(hd, q, k, v, nullptr, nullptr, kp, qp, out, pa, pm, ar, b,
+    return dispatch_hd<float, float>(hd, hdp, q, k, v, nullptr, nullptr, kp, qp, out, pa, pm, ar, b,
                                      c, kh, g, keys_per_split, n_splits, scale, window,
                                      chunked, softcap, st);
   if (q_dtype == 1 && kv_dtype == 1)
-    return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, q, k, v, nullptr, nullptr, kp, qp,
+    return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, hdp, q, k, v, nullptr, nullptr, kp, qp,
                                                      out, pa, pm, ar, b, c, kh, g,
                                                      keys_per_split, n_splits, scale,
                                                      window, chunked, softcap, st);
   if (q_dtype == 0 && quant)
-    return dispatch_hd<float, int8_t>(hd, q, k, v, ks, vs, kp, qp, out, pa, pm, ar, b, c, kh, g,
-                                      keys_per_split, n_splits, scale, window, chunked,
+    return dispatch_hd<float, int8_t>(hd, hdp, q, k, v, ks, vs, kp, qp, out, pa, pm, ar, b, c,
+                                      kh, g, keys_per_split, n_splits, scale, window, chunked,
                                       softcap, st);
   if (q_dtype == 1 && quant)
-    return dispatch_hd<__nv_bfloat16, int8_t>(hd, q, k, v, ks, vs, kp, qp, out, pa, pm, ar, b,
+    return dispatch_hd<__nv_bfloat16, int8_t>(hd, hdp, q, k, v, ks, vs, kp, qp, out, pa, pm, ar, b,
                                               c, kh, g, keys_per_split, n_splits, scale,
                                               window, chunked, softcap, st);
   return cudaErrorInvalidValue;

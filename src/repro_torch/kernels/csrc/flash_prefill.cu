@@ -64,12 +64,32 @@
 // only on positions, so the bf16 template decides it before it loads a
 // tile, over the CTA's positions.
 //
-// Head dims 32, 64, 80, 128 and 256. At 80 (zamba2's shared block) the bf16
-// tile takes 5 k-steps of 16 in Q.K^T and 5 ldmatrix.x4.trans loads (10 n8
+// Any head dim. Both templates are built for the widths 32, 64, 80, 96,
+// 128, 160, 192 and 256; a head dim hd runs at the next of them, each row
+// of q, K and V padded in shared memory from hd to that width with zeros
+// (cp.async's zero-fill where the rows are whole, aligned 16-byte vectors,
+// element by element where they are not). A zero column adds an exact
+// zero to Q.K^T, and the padded output columns are never stored, so
+// padding changes no value. The bf16 template is built twice a width: for
+// a head dim equal to it in aligned 16-byte rows (EXACT: hd and the copies
+// known to the compiler; the main path's), and padded. The f32
+// template takes only a head dim equal to its width in aligned rows; any
+// other f32 head dim takes the wide kernel below. At 80 (zamba2's shared
+// block) the bf16 tile
+// takes 5 k-steps of 16 in Q.K^T and 5 ldmatrix.x4.trans loads (10 n8
 // tiles) in P.V; its rows are 88 bf16 (176 bytes, 11 x 16: 16-byte aligned
 // for cp.async and ldmatrix, and 8 rows at 44-word offsets hit disjoint
-// banks). The f32 tile takes 48 query rows, so 30 accumulators a thread
-// cover it exactly.
+// banks); 96, 160 and 192 pad rows to 13, 21 and 25 x 16 bytes likewise.
+// The f32 tile takes 48 query rows at 80 (40 at 96, 24 at 160, 16 at
+// 192), so the accumulators of a thread cover it exactly.
+//
+// Above 256 (flash_prefill_wide_kernel; and in f32 off the widths), one
+// route for both dtypes on CUDA cores: the f32 template's walk with the
+// width a run-time argument (hd rounded up to 16), in register tiles of 4
+// query rows a warp (the scores, running max and sum in registers, p
+// passed between lanes by shuffles), the running output in shared memory
+// between KV tiles, the q tile and the KV tile sized on the host to fit
+// shared memory. Not tuned further.
 //
 // Plain C interface, built with nvcc and bound with ctypes
 // (repro_torch/kernels/_build.py, repro_torch/kernels/flash_prefill.py).
@@ -105,6 +125,8 @@ template <int HD> struct PrefillTile {
       sizeof(int) * (kRows + kKeys);
 };
 
+// hd = HD, rows of whole, aligned 16-byte vectors (other f32 head dims
+// take flash_prefill_wide_kernel)
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -112,6 +134,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const int* __restrict__ kpos, T* __restrict__ out, int sq, int skv,
                      int h_n, int kh_n, float scale, int causal, int window, int chunked,
                      float softcap) {
+  constexpr int hd = HD;
   using Tile = PrefillTile<HD>;
   constexpr int BQ = Tile::kRows;
   constexpr int KS = Tile::kKStride;
@@ -137,13 +160,13 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  const int64_t q_row_stride = static_cast<int64_t>(h_n) * HD;
-  const int64_t kv_row_stride = static_cast<int64_t>(kh_n) * HD;
-  const int64_t q_off = ((static_cast<int64_t>(b) * sq + q0) * h_n + hq) * HD;
-  const T* kb = k + (static_cast<int64_t>(b) * skv * kh_n + kvh) * HD;
-  const T* vb = v + (static_cast<int64_t>(b) * skv * kh_n + kvh) * HD;
+  const int64_t q_row_stride = static_cast<int64_t>(h_n) * hd;
+  const int64_t kv_row_stride = static_cast<int64_t>(kh_n) * hd;
+  const int64_t q_off = ((static_cast<int64_t>(b) * sq + q0) * h_n + hq) * hd;
+  const T* kb = k + (static_cast<int64_t>(b) * skv * kh_n + kvh) * hd;
+  const T* vb = v + (static_cast<int64_t>(b) * skv * kh_n + kvh) * hd;
 
-  attn::load_tile<T, HD>(q + q_off, q_row_stride, nq, q_s, HD);
+  attn::load_tile<T, true>(q + q_off, q_row_stride, nq, q_s, HD, hd, HD, true);
   for (int r = threadIdx.x; r < BQ; r += kThreads) {
     qp_s[r] = r < nq ? (qpos != nullptr ? qpos[q0 + r] : q0 + r) : 0;
     m_s[r] = kNegInf;
@@ -170,10 +193,10 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (!__syncthreads_or(mine) && all_seen) continue;
 
-    attn::load_tile<T, HD>(kb + static_cast<int64_t>(c0) * kv_row_stride, kv_row_stride, nk,
-                           k_s, KS);
-    attn::load_tile<T, HD>(vb + static_cast<int64_t>(c0) * kv_row_stride, kv_row_stride, nk,
-                           v_s, HD);
+    attn::load_tile<T, true>(kb + static_cast<int64_t>(c0) * kv_row_stride, kv_row_stride,
+                             nk, k_s, KS, hd, HD, true);
+    attn::load_tile<T, true>(vb + static_cast<int64_t>(c0) * kv_row_stride, kv_row_stride,
+                             nk, v_s, HD, hd, HD, true);
     __syncthreads();
 
     // scores: a warp takes one query row, a lane one key
@@ -251,13 +274,18 @@ template <int HD> struct MmaTile {
       sizeof(__nv_bfloat16) * kStride * (kRows + 4 * kKeys) + sizeof(int) * (2 * kKeys + 2 * kRows);
 };
 
-template <int HD>
+// HD: the padded width; hd: the head dim in memory; vec: rows load as
+// 16-byte vectors (cp.async, zero-filled past hd). EXACT: hd = HD and vec,
+// both known to the compiler (a head dim the kernel is built for).
+template <int HD, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ qpos,
                          const int* __restrict__ kpos, __nv_bfloat16* __restrict__ out, int sq,
                          int skv, int h_n, int kh_n, float scale, int causal, int window,
-                         int chunked, float softcap) {
+                         int chunked, float softcap, int hd_arg, bool vec_arg) {
+  const int hd = EXACT ? HD : hd_arg;
+  const bool vec = EXACT || vec_arg;
   using Tile = MmaTile<HD>;
   constexpr int BM = Tile::kRows;
   constexpr int BK = Tile::kKeys;
@@ -287,12 +315,25 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   const bool is_causal = causal != 0;
   const bool is_chunked = chunked != 0;
 
-  const int64_t kv_row_stride = static_cast<int64_t>(kh_n) * HD;
-  const __nv_bfloat16* kb = k + (static_cast<int64_t>(b) * skv * kh_n + kvh) * HD;
-  const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * skv * kh_n + kvh) * HD;
+  const int64_t kv_row_stride = static_cast<int64_t>(kh_n) * hd;
+  const __nv_bfloat16* kb = k + (static_cast<int64_t>(b) * skv * kh_n + kvh) * hd;
+  const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * skv * kh_n + kvh) * hd;
   // q / out element of packed row L: position L / g, head kvh * g + L % g
   auto row_off = [&](int L) -> int64_t {
-    return ((static_cast<int64_t>(b) * sq + L / g) * h_n + kvh * g + L % g) * HD;
+    return ((static_cast<int64_t>(b) * sq + L / g) * h_n + kvh * g + L % g) * hd;
+  };
+  // columns j .. j + 7 of a shared row from `row` (hd long; zeros when not
+  // `real`), zero past hd: one 16-byte cp.async when vec (8 columns or none
+  // there), else element by element. The EXACT kernel copies whole rows
+  // by cp.async alone, written out in place below.
+  auto load8 = [&](__nv_bfloat16* dst, const __nv_bfloat16* row, bool real, int j) {
+    const int n = real ? min(max(hd - j, 0), 8) : 0;
+    if (vec) {
+      attn::cp_async16(dst, n > 0 ? row + j : row, 2 * n);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) dst[u] = u < n ? row[j + u] : __float2bfloat16(0.0f);
+    }
   };
 
   // Q tile (zero rows past the end), committed with the first K/V tile
@@ -300,7 +341,10 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     const int r = i / kChunks;
     const int j = (i % kChunks) * 8;
     const bool real = l0 + r < n_rows;
-    attn::cp_async16(q_s + r * ST + j, real ? q + row_off(l0 + r) + j : q, real ? 16 : 0);
+    if constexpr (EXACT)
+      attn::cp_async16(q_s + r * ST + j, real ? q + row_off(l0 + r) + j : q, real ? 16 : 0);
+    else
+      load8(q_s + r * ST + j, real ? q + row_off(l0 + r) : q, real, j);
   }
   for (int i = tid; i < BM; i += kThreads) {
     qp_s[i] = i < npos ? (qpos != nullptr ? qpos[pos0 + i] : pos0 + i) : 0;
@@ -312,9 +356,15 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
       const int r = i / kChunks;
       const int j = (i % kChunks) * 8;
       const bool real = c0 + r < skv;
-      const int64_t off = real ? static_cast<int64_t>(c0 + r) * kv_row_stride + j : 0;
-      attn::cp_async16(k_s + (buf * BK + r) * ST + j, kb + off, real ? 16 : 0);
-      attn::cp_async16(v_s + (buf * BK + r) * ST + j, vb + off, real ? 16 : 0);
+      if constexpr (EXACT) {
+        const int64_t off = real ? static_cast<int64_t>(c0 + r) * kv_row_stride + j : 0;
+        attn::cp_async16(k_s + (buf * BK + r) * ST + j, kb + off, real ? 16 : 0);
+        attn::cp_async16(v_s + (buf * BK + r) * ST + j, vb + off, real ? 16 : 0);
+      } else {
+        const int64_t off = real ? static_cast<int64_t>(c0 + r) * kv_row_stride : 0;
+        load8(k_s + (buf * BK + r) * ST + j, kb + off, real, j);
+        load8(v_s + (buf * BK + r) * ST + j, vb + off, real, j);
+      }
     }
     attn::cp_async_commit();
   };
@@ -529,42 +579,276 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     const int r = i / kChunks;
     const int j = (i % kChunks) * 8;
     const int L = l0 + warp * 16 + r;
-    if (L < n_rows)
-      *reinterpret_cast<uint4*>(out + row_off(L) + j) =
-          *reinterpret_cast<const uint4*>(o_s + r * ST + j);
+    if constexpr (EXACT) {
+      if (L < n_rows)
+        *reinterpret_cast<uint4*>(out + row_off(L) + j) =
+            *reinterpret_cast<const uint4*>(o_s + r * ST + j);
+    } else if (L < n_rows && j < hd) {
+      if (vec)
+        *reinterpret_cast<uint4*>(out + row_off(L) + j) =
+            *reinterpret_cast<const uint4*>(o_s + r * ST + j);
+      else
+        for (int u = 0; u < 8 && j + u < hd; ++u) out[row_off(L) + j + u] = o_s[r * ST + j + u];
+    }
   }
+}
+
+// ---- above 256: CUDA cores, the width at run time --------------------------
+
+constexpr int kWideRowsMax = 4;   // query rows a warp
+constexpr int kWideCols = 8;      // output columns a lane takes per pass (8 x 32 a warp)
+
+// Tile sizes of the wide kernel: bq query rows a CTA (bq / 4 a warp), nkeys
+// keys a KV tile (one warp lane each), width w = hd rounded up to 16.
+struct WideTile {
+  int w, bq, nkeys;
+  size_t smem() const {
+    return sizeof(float) * ((4 * kWideRowsMax + static_cast<size_t>(bq)) * w +
+                            static_cast<size_t>(nkeys) * (2 * w + 1)) +
+           sizeof(int) * (bq + kKeys);
+  }
+};
+
+// 16 rows and 32 keys a CTA; keys halved (down to 8) until two CTAs fit an
+// SM, then rows halved (down to 4) until one fits
+inline WideTile wide_tile(int hd) {
+  WideTile t{(hd + 15) / 16 * 16, 4 * kWideRowsMax, kKeys};
+  while (t.smem() > 232448 / 2 && t.nkeys > 8) t.nkeys /= 2;
+  while (t.smem() > 232448 && t.bq > 4) t.bq /= 2;
+  return t;
+}
+
+// grid (ceil(Sq / bq), H, B), 128 threads; the f32 template's walk (see the
+// note at the top) in register tiles: warp w takes query rows w·rpw ..
+// (rpw = bq / 4), lane l key l of each KV tile for the scores and columns
+// l, l + 32, ... for the output. q is kept transposed in shared memory (a
+// warp's rows at one column are one float4), the scores, the running max
+// and sum stay in registers, p reaches the lanes by shuffles, and the
+// running output lives in shared memory between KV tiles.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_prefill_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const int* __restrict__ qpos,
+                          const int* __restrict__ kpos, T* __restrict__ out, int sq, int skv,
+                          int h_n, int kh_n, float scale, int causal, int window, int chunked,
+                          float softcap, int hd, WideTile tile, bool vec) {
+  const int w = tile.w, bq = tile.bq, nkeys = tile.nkeys;
+  const int rpw = bq / kWarps;
+  const int ks = w + 1;  // padded K rows: the lanes of a warp, one key each
+  extern __shared__ __align__(16) float wsmem[];
+  float* qt_s = wsmem;              // [w][4 warps][kWideRowsMax]: q transposed
+  float* o_s = qt_s + w * 4 * kWideRowsMax;  // [bq][w] the running output
+  float* k_s = o_s + bq * w;       // [nkeys][ks]
+  float* v_s = k_s + nkeys * ks;   // [nkeys][w]
+  int* qp_s = reinterpret_cast<int*>(v_s + nkeys * w);  // [bq]
+  int* kp_s = qp_s + bq;                                 // [kKeys]
+
+  const int q0 = blockIdx.x * bq;
+  const int hq = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = hq / (h_n / kh_n);
+  const int nq = min(bq, sq - q0);
+  const bool is_causal = causal != 0;
+  const bool is_chunked = chunked != 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = warp * rpw;  // the warp's first row
+
+  const int64_t q_row_stride = static_cast<int64_t>(h_n) * hd;
+  const int64_t kv_row_stride = static_cast<int64_t>(kh_n) * hd;
+  const int64_t q_off = ((static_cast<int64_t>(b) * sq + q0) * h_n + hq) * hd;
+  const T* kb = k + (static_cast<int64_t>(b) * skv * kh_n + kvh) * hd;
+  const T* vb = v + (static_cast<int64_t>(b) * skv * kh_n + kvh) * hd;
+
+  // q transposed, a warp's rows at one column side by side (zeros past hd,
+  // past nq and past rpw), the output zeroed
+  for (int i = threadIdx.x; i < 4 * kWideRowsMax * w; i += kThreads) {
+    const int d = i / (4 * kWideRowsMax), slot = i % (4 * kWideRowsMax);
+    const int ii = slot % kWideRowsMax, r = slot / kWideRowsMax * rpw + ii;
+    qt_s[i] = ii < rpw && r < nq && d < hd ? attn::to_f(q[q_off + r * q_row_stride + d]) : 0.0f;
+  }
+  for (int i = threadIdx.x; i < bq * w; i += kThreads) o_s[i] = 0.0f;
+  for (int r = threadIdx.x; r < bq; r += kThreads)
+    qp_s[r] = r < nq ? (qpos != nullptr ? qpos[q0 + r] : q0 + r) : 0;
+  float m_r[kWideRowsMax], l_r[kWideRowsMax];
+#pragma unroll
+  for (int i = 0; i < kWideRowsMax; ++i) {
+    m_r[i] = kNegInf;
+    l_r[i] = 0.0f;
+  }
+  bool all_seen = false;  // CTA-uniform: every real query row has met a visible key
+
+  for (int c0 = 0; c0 < skv; c0 += nkeys) {
+    const int nk = min(nkeys, skv - c0);
+    for (int c = threadIdx.x; c < kKeys; c += kThreads)
+      kp_s[c] = c < nk ? (kpos != nullptr ? kpos[c0 + c] : c0 + c) : -1;
+    __syncthreads();
+    int mine = 0;
+    for (int i = threadIdx.x; i < bq * nkeys; i += kThreads) {
+      const int r = i / nkeys;
+      const int c = i % nkeys;
+      if (r < nq && c < nk && attn::key_valid(qp_s[r], kp_s[c], is_causal, window, is_chunked))
+        mine = 1;
+    }
+    if (!__syncthreads_or(mine) && all_seen) continue;
+
+    attn::load_tile<T, false>(kb + static_cast<int64_t>(c0) * kv_row_stride, kv_row_stride,
+                              nk, k_s, ks, hd, w, vec);
+    attn::load_tile<T, false>(vb + static_cast<int64_t>(c0) * kv_row_stride, kv_row_stride,
+                              nk, v_s, w, hd, w, vec);
+    __syncthreads();
+
+    // scores of the warp's rows against the lane's key: k read once for
+    // all rows, the rows' q at a column as one float4
+    const bool key = lane < nk;
+    float s[kWideRowsMax] = {};
+    if (key) {
+      const float* kr = k_s + lane * ks;
+#pragma unroll 4
+      for (int d = 0; d < w; ++d) {
+        const float kv = kr[d];
+        const float4 qv =
+            *reinterpret_cast<const float4*>(qt_s + (d * 4 + warp) * kWideRowsMax);
+        s[0] = fmaf(qv.x, kv, s[0]);
+        s[1] = fmaf(qv.y, kv, s[1]);
+        s[2] = fmaf(qv.z, kv, s[2]);
+        s[3] = fmaf(qv.w, kv, s[3]);
+      }
+    }
+    // online softmax in registers: a row's scores lie across the warp
+    float alpha[kWideRowsMax];
+#pragma unroll
+    for (int i = 0; i < kWideRowsMax; ++i) {
+      const int r = r0 + i;
+      float x = kNegInf;
+      if (key) {
+        x = s[i] * scale;
+        if (softcap > 0.0f) x = tanhf(x / softcap) * softcap;
+        if (!(i < rpw && r < nq &&
+              attn::key_valid(qp_s[r], kp_s[lane], is_causal, window, is_chunked)))
+          x = kNegInf;
+      }
+      const float m_new = fmaxf(m_r[i], attn::warp_max(x));
+      s[i] = key ? expf(x - m_new) : 0.0f;
+      alpha[i] = expf(m_r[i] - m_new);
+      l_r[i] = l_r[i] * alpha[i] + attn::warp_sum(s[i]);
+      m_r[i] = m_new;
+    }
+
+    // o = o · alpha + p · V over the warp's rows, kWideCols columns a lane
+    // a pass; p of key c from lane c
+    for (int cb = 0; cb < w; cb += 32 * kWideCols) {
+      float acc[kWideRowsMax][kWideCols];
+#pragma unroll
+      for (int i = 0; i < kWideRowsMax; ++i)
+#pragma unroll
+        for (int j = 0; j < kWideCols; ++j) {
+          const int d = cb + lane + 32 * j;
+          acc[i][j] = i < rpw && d < w ? o_s[(r0 + i) * w + d] * alpha[i] : 0.0f;
+        }
+      for (int c = 0; c < nk; ++c) {
+        float p[kWideRowsMax];
+#pragma unroll
+        for (int i = 0; i < kWideRowsMax; ++i) p[i] = __shfl_sync(0xffffffffu, s[i], c);
+#pragma unroll
+        for (int j = 0; j < kWideCols; ++j) {
+          const int d = cb + lane + 32 * j;
+          const float vv = d < w ? v_s[c * w + d] : 0.0f;
+#pragma unroll
+          for (int i = 0; i < kWideRowsMax; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kWideRowsMax; ++i)
+#pragma unroll
+        for (int j = 0; j < kWideCols; ++j) {
+          const int d = cb + lane + 32 * j;
+          if (i < rpw && d < w) o_s[(r0 + i) * w + d] = acc[i][j];
+        }
+    }
+    if (!all_seen) {
+      int seen = 1;
+#pragma unroll
+      for (int i = 0; i < kWideRowsMax; ++i) seen &= i >= rpw || r0 + i >= nq || m_r[i] > kNegInf;
+      all_seen = __syncthreads_and(seen) != 0;
+    }
+    __syncthreads();
+  }
+
+  // each warp writes its rows: o / l
+  T* ob = out + q_off;
+#pragma unroll
+  for (int i = 0; i < kWideRowsMax; ++i) {
+    const int r = r0 + i;
+    if (i >= rpw || r >= nq) continue;
+    const float inv = 1.0f / fmaxf(l_r[i], 1e-30f);
+    for (int d = lane; d < hd; d += 32)
+      ob[r * q_row_stride + d] = attn::from_f<T>(o_s[r * w + d] * inv);
+  }
+}
+
+// ---- host side ------------------------------------------------------------
+
+// rows of whole, aligned 16-byte vectors of T
+template <typename T>
+bool rows_vec(int hd, const void* q, const void* k, const void* v) {
+  return hd * sizeof(T) % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(k) % 16 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
 }
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const int* qpos,
                        const int* kpos, void* out, int b, int sq, int skv, int h, int kh,
-                       float scale, int causal, int window, int chunked, float softcap,
+                       float scale, int causal, int window, int chunked, float softcap, int hd,
                        cudaStream_t stream) {
-  auto kernel = flash_prefill_mma_kernel<HD>;
+  using bf16 = __nv_bfloat16;
+  const bool vec = rows_vec<bf16>(hd, q, k, v) && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  auto kernel = hd == HD && vec ? flash_prefill_mma_kernel<HD, true>
+                                : flash_prefill_mma_kernel<HD, false>;
   constexpr size_t smem = MmaTile<HD>::kSmem;
   cudaError_t err = attn::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int64_t rows = static_cast<int64_t>(sq) * (h / kh);
   const auto tiles = static_cast<unsigned>((rows + MmaTile<HD>::kRows - 1) / MmaTile<HD>::kRows);
   const dim3 grid(tiles, kh, b);
-  using bf16 = __nv_bfloat16;
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       qpos, kpos, static_cast<bf16*>(out), sq, skv, h, kh, scale, causal, window, chunked,
-      softcap);
+      softcap, hd, vec);
   return cudaGetLastError();
 }
 
-// bf16 on the tensor cores, f32 on the CUDA cores (see the note above)
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const int* qpos,
+                        const int* kpos, void* out, int b, int sq, int skv, int h, int kh,
+                        float scale, int causal, int window, int chunked, float softcap, int hd,
+                        cudaStream_t stream) {
+  auto kernel = flash_prefill_wide_kernel<T>;
+  const WideTile tile = wide_tile(hd);
+  cudaError_t err = attn::allow_smem(kernel, tile.smem());
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + tile.bq - 1) / tile.bq, h, b);
+  kernel<<<grid, kThreads, tile.smem(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qpos, kpos,
+      static_cast<T*>(out), sq, skv, h, kh, scale, causal, window, chunked, softcap, hd, tile,
+      rows_vec<T>(hd, q, k, v));
+  return cudaGetLastError();
+}
+
+// bf16 on the tensor cores, f32 on the CUDA cores (see the note above); an
+// f32 head dim off the widths takes the wide kernel
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
                    const int* kpos, void* out, int b, int sq, int skv, int h, int kh,
-                   float scale, int causal, int window, int chunked, float softcap,
+                   float scale, int causal, int window, int chunked, float softcap, int hd,
                    cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     return launch_mma<HD>(q, k, v, qpos, kpos, out, b, sq, skv, h, kh, scale, causal, window,
-                          chunked, softcap, stream);
+                          chunked, softcap, hd, stream);
   } else {
+    if (hd != HD || !rows_vec<T>(hd, q, k, v))
+      return launch_wide<T>(q, k, v, qpos, kpos, out, b, sq, skv, h, kh, scale, causal, window,
+                            chunked, softcap, hd, stream);
     auto kernel = flash_prefill_kernel<T, HD>;
     constexpr size_t smem = PrefillTile<HD>::kSmem;
     cudaError_t err = attn::allow_smem(kernel, smem);
@@ -577,35 +861,40 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
   }
 }
 
+// the next width the templates are built for, or the wide kernel above 256
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         const int* qpos, const int* kpos, void* out, int b, int sq,
                         int skv, int h, int kh, float scale, int causal, int window,
                         int chunked, float softcap, cudaStream_t st) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, qpos, kpos, out, b, sq, skv, h, kh, scale, causal,
-                           window, chunked, softcap, st);
-    case 64:
-      return launch<T, 64>(q, k, v, qpos, kpos, out, b, sq, skv, h, kh, scale, causal,
-                           window, chunked, softcap, st);
-    case 80:
-      return launch<T, 80>(q, k, v, qpos, kpos, out, b, sq, skv, h, kh, scale, causal,
-                           window, chunked, softcap, st);
-    case 128:
-      return launch<T, 128>(q, k, v, qpos, kpos, out, b, sq, skv, h, kh, scale, causal,
-                            window, chunked, softcap, st);
-    case 256:
-      return launch<T, 256>(q, k, v, qpos, kpos, out, b, sq, skv, h, kh, scale, causal,
-                            window, chunked, softcap, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define PREFILL_AT(W)                                                                        \
+  launch<T, W>(q, k, v, qpos, kpos, out, b, sq, skv, h, kh, scale, causal, window, chunked, \
+               softcap, hd, st)
+  if (hd <= 0) return cudaErrorInvalidValue;
+  if (hd <= 32) return PREFILL_AT(32);
+  if (hd <= 64) return PREFILL_AT(64);
+  if (hd <= 80) return PREFILL_AT(80);
+  if (hd <= 96) return PREFILL_AT(96);
+  if (hd <= 128) return PREFILL_AT(128);
+  if (hd <= 160) return PREFILL_AT(160);
+  if (hd <= 192) return PREFILL_AT(192);
+  if (hd <= 256) return PREFILL_AT(256);
+#undef PREFILL_AT
+  return launch_wide<T>(q, k, v, qpos, kpos, out, b, sq, skv, h, kh, scale, causal, window,
+                        chunked, softcap, hd, st);
 }
 
 }  // namespace
 
 extern "C" {
+
+// The largest head dim the wide kernel's tile fits a CTA's shared memory at
+// (the Python wrapper checks it when it binds the library).
+int flash_prefill_max_head_dim() {
+  int hd = 256;
+  while (wide_tile(hd + 16).smem() <= 232448) hd += 16;
+  return hd;
+}
 
 // dtype codes: 0 float32, 1 bfloat16. qpos / kpos may be null (0..S-1).
 // window <= 0: no window; softcap <= 0: no softcap.

@@ -19,9 +19,10 @@
 // same numbers the reference gets by casting the whole pool to x.dtype
 // first, without re-materialising the pool on every call.
 //
-// What bounds them on an H100: bytes. The LoRA rank r (4..64) makes both
-// products thin: shrink does 2·r FLOPs per x element, expand 2·r per y
-// element, far below the ~295 FLOP/byte of the bf16 tensor cores. At decode
+// What bounds them on an H100: bytes. The LoRA rank r (4..64 in the
+// configs; any r >= 1 is taken) makes both products thin: shrink does 2·r
+// FLOPs per x element, expand 2·r per y element, far below the ~295
+// FLOP/byte of the bf16 tensor cores. At decode
 // (8 tokens) shrink's bytes are the f32 A rows of the used slots,
 // r · d_in · 4 bytes each (512 KiB at r 32, d_in 4096), and expand's the
 // f32 B rows of the used slots plus the f32 y rows of the whole padded
@@ -29,16 +30,25 @@
 // dependent round trips takes. So the design keeps many bytes in flight
 // per SM and the chain short.
 //
+// Any rank and any blk_t. A block's [blk_t, r] tile of s is cut into
+// units: n_sub row slices of sub_t <= kSubBlk rows (blk_t itself up to 128;
+// a block of k·128 rows is k slices of 128 with the block's slot) times
+// n_rc rank chunks of up to kRankChunk ranks (r itself up to 64). A unit is
+// what the kernels were built for (16 token tiles of 8, 4 rank tiles of
+// 16). Both kernels derive the units on the device from (blk_t, r); at
+// blk_t <= 128 and r <= 64 a block is one unit, as before.
+//
 // sgmv_shrink (one launch):
 //  1. The grid is as many CTAs as the card holds at once (sgmv_shrink_ctas:
 //     occupancy x SMs, 2 x 132 at the main path's shapes). Each CTA reads
 //     n_used and block_slots in one round trip and derives its work: a used
 //     block's d_in is cut into kt tiles of kKC columns, the tiles into
-//     S = clamp(G / n_used, 1, kt) contiguous splits, and CTA g takes items
-//     g, g + G, ... of the n_used · S (block = item / S, split = item % S).
-//     So the card's CTAs spread over the blocks that really hold tokens
-//     (up to 8 at decode) and not over the static bound (21). Every CTA
-//     also stores a share of the zero rows of the blocks past n_used.
+//     S = clamp(G / (n_used · units), 1, kt) contiguous splits, and CTA g
+//     takes items g, g + G, ... of the n_used · units · S (unit = item / S,
+//     split = item % S; block = unit / units a block). So the card's CTAs spread
+//     over the blocks that really hold tokens (up to 8 at decode) and not
+//     over the static bound (21). Every CTA also stores a share of the zero
+//     rows of the blocks past n_used.
 //  2. A ring of up to 4 stages of kKC columns (A rows in f32, x rows in x's
 //     type, rows padded so fragment reads are free of bank conflicts),
 //     filled by 16-byte cp.async from every thread; an mbarrier per stage
@@ -60,21 +70,26 @@
 //     products).
 //  4. The 4 warps split the tile's token tiles (wn) and its 16-column
 //     k-steps (wk); their partial sums meet in shared memory, in warp
-//     order. With S > 1 each split writes its [blk_t, r] partial to scratch
-//     and counts itself in arrived[block] with a release/acquire atomic;
+//     order. With S > 1 each split writes its unit's partial to scratch
+//     and counts itself in arrived[unit] with a release/acquire atomic;
 //     the last split to arrive sums the S partials in split order (all L2
 //     reads of a batch in flight) and resets the counter. No second launch,
 //     no float atomics: two calls give bit-equal outputs.
 //
-// sgmv_expand: grid (n_blocks, ceil(d_out / kExpandDT)). Each CTA reads its
-// block's slot beside n_used; a CTA of a block past n_used stores its zero
-// tile and exits. Any other CTA issues its kExpandDT columns of B (a
-// contiguous kExpandDT x r f32 run of the pool) and the block's rows of s as
-// 16-byte cp.async, all in flight at once, rounds B to the compute type
-// once in shared memory, and computes blk_t x kExpandDT outputs in passes of
-// 4·TM tokens: each thread keeps a TM x kExpandCJ register tile (one float4
-// of s feeds 4·kExpandCJ FMAs), in f32 in rank order, as the plain version
-// multiplies. Rows go out through shared memory as 16-byte stores.
+// sgmv_expand: grid (n_blocks · n_sub, ceil(d_out / kExpandDT)). Each CTA
+// reads its block's slot beside n_used; a CTA of a block past n_used stores
+// its zero tile and exits. Any other CTA issues its kExpandDT columns of B (a
+// contiguous kExpandDT x r f32 run of the pool) and its rows of s as 16-byte
+// cp.async, all in flight at once, rounds B to the compute type once in
+// shared memory, and computes sub_t x kExpandDT outputs in passes of 4·TM
+// tokens: each thread keeps a TM x kExpandCJ register tile (one float4 of s
+// feeds 4·kExpandCJ FMAs), in f32 in rank order, as the plain version
+// multiplies. Rows go out through shared memory as 16-byte stores. A rank
+// above kExpandOneShot walks the contraction in chunks of kRankChunk ranks
+// through two shared-memory buffers (the next chunk loads while this one
+// computes); between chunks each thread parks its register tile in shared
+// memory and takes it up again, so every output is still one f32 sum in
+// rank order.
 //
 // Plain C interface, built with nvcc and bound with ctypes
 // (repro_torch/kernels/_build.py, repro_torch/kernels/sgmv.py). Each entry
@@ -91,14 +106,15 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kKC = 128;           // d_in columns per shrink stage
 constexpr int kKSteps = kKC / 16;  // mma k-steps per stage
 constexpr int kLdA = kKC + 8;      // f32 A row stride in shared memory: 544 B
-constexpr int kMaxRank = 64;       // 4 rank tiles of 16
-constexpr int kMaxBlk = 128;       // 16 token tiles of 8, at most 4 a warp
+constexpr int kRankChunk = 64;     // ranks a unit: 4 rank tiles of 16
+constexpr int kSubBlk = 128;       // rows a unit: 16 token tiles of 8, at most 4 a warp
 constexpr int kMaxStages = 4;      // ring depth
 constexpr int kRingBudget = 112 * 1024;  // two CTAs share an SM's 228 KiB
 constexpr int kMaxSmem = 232448;   // what one CTA may have (227 KiB)
 constexpr int kMergeBatch = 16;    // partials whose L2 reads are issued together
 constexpr int kExpandDT = 64;      // d_out columns per expand CTA
 constexpr int kExpandCJ = kExpandDT / 32;  // ... per lane
+constexpr int kExpandOneShot = 128;  // expand ranks (padded to 4) taken in one chunk
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -114,7 +130,22 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// How a shrink CTA's 4 warps cover a [r, blk_t] tile of s: mt rank tiles of
+// A block's units (see the note at the top): n_sub row slices of sub_t rows
+// (the last one ragged), n_rc rank chunks of rcw ranks (the last one ragged).
+struct Units {
+  int n_sub, sub_t, n_rc, rcw;
+};
+
+__host__ __device__ inline Units units_of(int blk_t, int r) {
+  Units u;
+  u.n_sub = (blk_t + kSubBlk - 1) / kSubBlk;
+  u.sub_t = u.n_sub == 1 ? blk_t : (blk_t + u.n_sub - 1) / u.n_sub;
+  u.n_rc = (r + kRankChunk - 1) / kRankChunk;
+  u.rcw = r < kRankChunk ? r : kRankChunk;
+  return u;
+}
+
+// How a shrink CTA's 4 warps cover a unit's [rcw, sub_t] tile of s: mt rank tiles of
 // 16, nt token tiles of 8; wn warps across the token tiles, ntw tiles each
 // (a power of two; tiles past nt read rows that are never stored), wk warps
 // across the k-steps of a stage.
@@ -122,16 +153,22 @@ struct ShrinkShape {
   int mt, nt, wn, wk, ntw, r_pad, x_rows;
 };
 
-__host__ __device__ inline ShrinkShape shrink_shape(int blk_t, int r) {
+// the shape of a unit of sub_t rows and rcw ranks
+__host__ __device__ inline ShrinkShape unit_shape(int sub_t, int rcw) {
   ShrinkShape s;
-  s.mt = (r + 15) / 16;
-  s.nt = (blk_t + 7) / 8;
+  s.mt = (rcw + 15) / 16;
+  s.nt = (sub_t + 7) / 8;
   s.wn = s.nt >= 3 ? 4 : s.nt;
   s.wk = kWarps / s.wn;
   s.ntw = s.nt <= 4 ? 1 : (s.nt <= 8 ? 2 : 4);
   s.r_pad = 16 * s.mt;
   s.x_rows = 8 * s.wn * s.ntw;
   return s;
+}
+
+__host__ __device__ inline ShrinkShape shrink_shape(int blk_t, int r) {
+  const Units u = units_of(blk_t, r);
+  return unit_shape(u.sub_t, u.rcw);
 }
 
 // one ring stage: r_pad rows of A in f32, then x_rows rows of x
@@ -296,19 +333,27 @@ __device__ __forceinline__ float4 add(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// out[0:n_out] = the sum of the splits' partials part[j][0:n_out], j in
-// order, in vectors V (float4 where n_out allows). When the block has fewer
-// vectors than the CTA threads, p_n threads share a vector: thread p sums
-// the splits j = p, p + p_n, ... in order and the p_n sums are added in p
-// order through `scratch`. A fixed order either way: two calls give
-// bit-equal outputs. Every load of a batch is issued before the first add.
+// out = the sum of the splits' partials, j in order: a [rows, cols] tile,
+// partial j at part + j · pstride (contiguous rows of cols), out row i at
+// out + i · ld; in vectors V (float4 where the widths allow). When the tile
+// has fewer vectors than the CTA threads, p_n threads share a vector:
+// thread p sums the splits j = p, p + p_n, ... in order and the p_n sums
+// are added in p order through `scratch`. A fixed order either way: two
+// calls give bit-equal outputs. Every load of a batch is issued before the
+// first add.
 template <typename V>
-__device__ __forceinline__ void merge_splits(const float* part, float* out, int n_out, int splits,
-                                             V* scratch) {
-  const int nv = n_out / (sizeof(V) / sizeof(float));
+__device__ __forceinline__ void merge_splits(const float* part, int pstride, float* out, int rows,
+                                             int cols, int ld, int splits, V* scratch) {
+  constexpr int kW = sizeof(V) / sizeof(float);
+  const int nv = rows * cols / kW;
+  const int pnv = pstride / kW;
   const int p_n = nv >= kThreads ? 1 : kThreads / nv;
   const V* pv = reinterpret_cast<const V*>(part);
-  V* ov = reinterpret_cast<V*>(out);
+  // vector c's element offset in out: rows are contiguous when cols == ld
+  auto out_at = [&](int c) -> V* {
+    const int e = c * kW;
+    return reinterpret_cast<V*>(out + (cols == ld ? e : (e / cols) * ld + e % cols));
+  };
   const int tid = threadIdx.x;
   const int p = p_n > 1 ? tid / nv : 0;
   for (int c = p_n > 1 ? tid % nv : tid; c < nv && p < p_n; c += p_n > 1 ? nv : kThreads) {
@@ -318,14 +363,14 @@ __device__ __forceinline__ void merge_splits(const float* part, float* out, int 
 #pragma unroll
       for (int u = 0; u < kMergeBatch; ++u) {
         const int j = j0 + u * p_n;
-        if (j < splits) v[u] = __ldcg(pv + static_cast<int64_t>(j) * nv + c);
+        if (j < splits) v[u] = __ldcg(pv + static_cast<int64_t>(j) * pnv + c);
       }
 #pragma unroll
       for (int u = 0; u < kMergeBatch; ++u)
         if (j0 + u * p_n < splits) acc = add(acc, v[u]);
     }
     if (p_n == 1) {
-      ov[c] = acc;
+      *out_at(c) = acc;
     } else {
       scratch[p * nv + c] = acc;
     }
@@ -335,14 +380,16 @@ __device__ __forceinline__ void merge_splits(const float* part, float* out, int 
   for (int c = tid; c < nv; c += kThreads) {
     V acc = scratch[c];
     for (int i = 1; i < p_n; ++i) acc = add(acc, scratch[i * nv + c]);
-    ov[c] = acc;
+    *out_at(c) = acc;
   }
 }
 
 // grid G (sgmv_shrink_ctas), 128 threads, nst ring stages; see the note at
-// the top. Rows of the ring past r and blk_t are never loaded: they only
-// feed rank rows and token columns of the products that are not stored.
-template <typename T, int MT, int NTW>
+// the top. Rows of the ring past a unit's ranks and rows are never loaded:
+// they only feed rank rows and token columns of the products that are not
+// stored. UNITS: a block is more than one unit (r > 64 or blk_t > 128);
+// without it the unit is the block, in the main path's code.
+template <typename T, int MT, int NTW, bool UNITS>
 __global__ void __launch_bounds__(kThreads)
 sgmv_shrink_kernel(const T* __restrict__ x, const float* __restrict__ a,
                    const int* __restrict__ block_slots, const int* __restrict__ n_used_p,
@@ -353,7 +400,8 @@ sgmv_shrink_kernel(const T* __restrict__ x, const float* __restrict__ a,
   __shared__ int slots_s[kThreads];
   __shared__ int used_s, is_last;
   constexpr int kLdX = XTile<T>::kLd;
-  const ShrinkShape sh = shrink_shape(blk_t, r);
+  const ShrinkShape sh = UNITS ? shrink_shape(blk_t, r) : unit_shape(blk_t, r);
+  const Units un = UNITS ? units_of(blk_t, r) : Units{1, blk_t, 1, r};
   const int a_bytes = shrink_a_bytes(sh);
   const int stage_bytes = shrink_stage_bytes<T>(sh);
   float* red = reinterpret_cast<float*>(smem + nst * stage_bytes);
@@ -372,9 +420,12 @@ sgmv_shrink_kernel(const T* __restrict__ x, const float* __restrict__ a,
   const int used = used_s;
   const int grid = gridDim.x;
   const int kt = (d_in + kKC - 1) / kKC;
-  const int splits = used > 0 ? max(1, min(grid / used, kt)) : 1;
-  const int items = used * splits;
+  const int per_blk = un.n_sub * un.n_rc;  // units a block
+  const int units = used * per_blk;
+  const int splits = units > 0 ? max(1, min(grid / units, kt)) : 1;
+  const int items = units * splits;
   const int n_out = blk_t * r;
+  const int pstride = un.sub_t * un.rcw;  // a partial's floats
 
   // the blocks past n_used: zero rows of x, zero rows of s
   for (int64_t e = static_cast<int64_t>(used) * n_out + static_cast<int64_t>(blockIdx.x) * kThreads + tid;
@@ -383,20 +434,29 @@ sgmv_shrink_kernel(const T* __restrict__ x, const float* __restrict__ a,
 
   int uses = 0;  // fills of the ring so far: fill u goes to stage u % nst
   for (int item = blockIdx.x; item < items; item += grid) {
-    const int blk = item / splits;
+    const int unit = item / splits;
     const int split = item % splits;
+    // the unit's block, first row and rank, rows and ranks
+    int blk = unit, t0 = 0, r0 = 0, nt = blk_t, nr = r;
+    if constexpr (UNITS) {
+      blk = unit / per_blk;
+      t0 = unit % per_blk / un.n_rc * un.sub_t;
+      r0 = unit % per_blk % un.n_rc * kRankChunk;
+      nt = min(un.sub_t, blk_t - t0);
+      nr = min(kRankChunk, r - r0);
+    }
     const int t_begin = static_cast<int>(static_cast<int64_t>(split) * kt / splits);
     const int n_tiles = static_cast<int>(static_cast<int64_t>(split + 1) * kt / splits) - t_begin;
     const int slot = blk < kThreads ? slots_s[blk] : block_slots[blk];
     if (slot < 0 || slot >= n_slots) __trap();
-    const T* xb = x + static_cast<int64_t>(blk) * blk_t * d_in;
-    const float* ab = a + static_cast<int64_t>(slot) * r * d_in;
+    const T* xb = x + (static_cast<int64_t>(blk) * blk_t + t0) * d_in;
+    const float* ab = a + (static_cast<int64_t>(slot) * r + r0) * d_in;
     auto fill = [&](int tile) {
       const int st = (uses + tile) % nst;
       unsigned char* base = smem + st * stage_bytes;
       const int k0 = (t_begin + tile) * kKC;
-      load_rows<float>(reinterpret_cast<float*>(base), kLdA, ab, d_in, r, k0, d_in, vec);
-      load_rows<T>(reinterpret_cast<T*>(base + a_bytes), kLdX, xb, d_in, blk_t, k0, d_in, vec);
+      load_rows<float>(reinterpret_cast<float*>(base), kLdA, ab, d_in, nr, k0, d_in, vec);
+      load_rows<T>(reinterpret_cast<T*>(base + a_bytes), kLdX, xb, d_in, nt, k0, d_in, vec);
       if (vec)
         mbar_arrive_cp_async(&bars[st]);
       else
@@ -445,31 +505,36 @@ sgmv_shrink_kernel(const T* __restrict__ x, const float* __restrict__ a,
       }
     }
     __syncthreads();
-    float* dst = splits == 1 ? out + static_cast<int64_t>(blk) * n_out
-                             : part + static_cast<int64_t>(item) * n_out;
-    for (int e = tid; e < n_out; e += kThreads) {
-      const int tok = e / r, rank = e % r;
+    // the unit's [nt, nr] tile: into out (rows r apart), or contiguous into
+    // its partial
+    float* ob = out + (static_cast<int64_t>(blk) * blk_t + t0) * r + r0;
+    float* dst = splits == 1 ? ob : part + static_cast<int64_t>(item) * pstride;
+    const bool rows_apart = UNITS && splits == 1 && nr != r;  // a rank chunk of out
+    for (int e = tid; e < nt * nr; e += kThreads) {
+      const int tok = e / nr, rank = e % nr;
       float v = red[tok * rs + rank];
       for (int w = 1; w < sh.wk; ++w) v += red[(w * sh.x_rows + tok) * rs + rank];
-      dst[e] = v;
+      dst[rows_apart ? tok * r + rank : e] = v;
     }
 
     if (splits > 1) {
-      // the last split of the block to finish sums all of them, in order.
+      // the last split of the unit to finish sums all of them, in order.
       // The barrier orders every thread's partial store before thread 0's
       // count, whose release publishes them and whose acquire, in the last
       // split, makes the other splits' partials visible to its loads (L2).
       __syncthreads();
-      if (tid == 0) is_last = atomic_add_acq_rel(arrived + blk, 1) == splits - 1;
+      if (tid == 0) is_last = atomic_add_acq_rel(arrived + unit, 1) == splits - 1;
       __syncthreads();
       if (is_last) {
-        const float* pb = part + static_cast<int64_t>(blk) * splits * n_out;
-        float* ob = out + static_cast<int64_t>(blk) * n_out;
-        if (n_out % 4 == 0)
-          merge_splits<float4>(pb, ob, n_out, splits, reinterpret_cast<float4*>(red));
+        const float* pb = part + static_cast<int64_t>(unit) * splits * pstride;
+        // float4 where every vector lies in one row of out and is aligned
+        const bool v4 = nr == r ? (blk_t * r) % 4 == 0 && (t0 * r) % 4 == 0 && (nt * r) % 4 == 0
+                                : nr % 4 == 0 && r % 4 == 0;
+        if (v4 && pstride % 4 == 0)
+          merge_splits<float4>(pb, pstride, ob, nt, nr, r, splits, reinterpret_cast<float4*>(red));
         else
-          merge_splits<float>(pb, ob, n_out, splits, red);
-        if (tid == 0) arrived[blk] = 0;  // ready for the next call on this stream
+          merge_splits<float>(pb, pstride, ob, nt, nr, r, splits, red);
+        if (tid == 0) arrived[unit] = 0;  // ready for the next call on this stream
       }
     }
     __syncthreads();  // before the next item reuses `red` and the ring
@@ -496,100 +561,156 @@ __host__ __device__ inline int expand_rows(int blk_t, int tm) {
   return (blk_t + 4 * tm - 1) / (4 * tm) * (4 * tm);
 }
 
-// Copy `rows` rows of r floats (row i at src + i * r) to dst + i * ld_dst,
-// zero-padded to r4: 16-byte cp.async when r % 4 == 0 and src is aligned.
+// Copy w columns of `rows` rows (row i at src + i * ld_src) to
+// dst + i * ld_dst, zero-padded to w4: 16-byte cp.async when vec (w and
+// ld_src multiples of 4, src aligned), else element by element.
 __device__ __forceinline__ void load_rank_rows(float* dst, int ld_dst, const float* __restrict__ src,
-                                               int r, int rows, int r4, bool vec) {
-  const int chunks = r4 / 4;
+                                               int ld_src, int w, int rows, int w4, bool vec) {
+  const int chunks = w4 / 4;
   for (int c = threadIdx.x; c < rows * chunks; c += kThreads) {
     const int row = c / chunks, k = 4 * (c % chunks);
     float* d = dst + row * ld_dst + k;
-    const float* s = src + static_cast<int64_t>(row) * r + k;
+    const float* s = src + static_cast<int64_t>(row) * ld_src + k;
     if (vec) {
       attn::cp_async16(d, s);
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) d[e] = k + e < r ? s[e] : 0.f;
+      for (int e = 0; e < 4; ++e) d[e] = k + e < w ? s[e] : 0.f;
     }
   }
 }
 
-// grid (n_blocks, ceil(d_out / kExpandDT)), 128 threads; see the note at the
-// top. Warp w computes tokens tp + w·TM .. + TM of each pass, lane l the
-// columns l, l + 32, ... of the CTA's kExpandDT.
+// The expand CTA's shared memory, in floats: nbuf buffers of (B columns
+// [kExpandDT][ldb], s rows [rows][rc4]), the store stage [4·TM][kExpandDT],
+// and with more than one rank chunk the parked register tiles
+// [rows][kExpandDT].
+struct ExpandSmem {
+  int rc4, ldb, rows, n_ch, buf;
+  size_t floats(int tm) const {
+    return static_cast<size_t>(n_ch > 1 ? 2 : 1) * buf + static_cast<size_t>(4 * tm) * kExpandDT +
+           (n_ch > 1 ? static_cast<size_t>(rows) * kExpandDT : 0);
+  }
+};
+
+__host__ __device__ inline ExpandSmem expand_smem(int sub_t, int r, int rc, int tm) {
+  ExpandSmem m;
+  m.rc4 = (rc + 3) & ~3;
+  m.ldb = expand_ldb(m.rc4);
+  m.rows = expand_rows(sub_t, tm);
+  m.n_ch = (r + rc - 1) / rc;
+  m.buf = kExpandDT * m.ldb + m.rows * m.rc4;
+  return m;
+}
+
+// grid (n_blocks · n_sub, ceil(d_out / kExpandDT)), 128 threads; see the
+// note at the top. rc: ranks a chunk (r itself up to kExpandOneShot). Warp w
+// computes tokens tp + w·TM .. + TM of each pass, lane l the columns l,
+// l + 32, ... of the CTA's kExpandDT.
 template <typename T, int TM>
 __global__ void __launch_bounds__(kThreads)
 sgmv_expand_kernel(const float* __restrict__ s, const float* __restrict__ b,
                    const int* __restrict__ block_slots, const int* __restrict__ n_used_p,
-                   float* __restrict__ y, int n_blocks, int blk_t, int d_out, int r, int n_slots,
-                   bool vec_in, bool vec_y) {
+                   float* __restrict__ y, int n_blocks, int blk_t, int d_out, int r, int rc,
+                   int n_slots, bool vec_in, bool vec_y) {
   extern __shared__ __align__(16) float fsmem[];
-  const int blk = blockIdx.x;
+  const Units un = units_of(blk_t, r);
+  int blk = blockIdx.x, t0 = 0, nt = blk_t;  // the CTA's block, first row, rows
+  if (un.n_sub > 1) {
+    blk = blockIdx.x / un.n_sub;
+    t0 = blockIdx.x % un.n_sub * un.sub_t;
+    nt = min(un.sub_t, blk_t - t0);
+  }
   const int c0 = blockIdx.y * kExpandDT;
   const int ncols = min(kExpandDT, d_out - c0);
   const int tid = threadIdx.x;
   const int slot = block_slots[blk];  // read beside n_used: one round trip
   const int used = n_used_p ? min(max(*n_used_p, 0), n_blocks) : n_blocks;
-  float* yb = y + static_cast<int64_t>(blk) * blk_t * d_out + c0;
+  float* yb = y + (static_cast<int64_t>(blk) * blk_t + t0) * d_out + c0;
   if (blk >= used) {  // zero rows of s: store the zeros, read no weights
     const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int e = tid; e < blk_t * (kExpandDT / 4); e += kThreads) {
+    for (int e = tid; e < nt * (kExpandDT / 4); e += kThreads) {
       const int t = e / (kExpandDT / 4), c = 4 * (e % (kExpandDT / 4));
       store4(yb + static_cast<int64_t>(t) * d_out + c, z, ncols - c, vec_y);
     }
     return;
   }
   if (slot < 0 || slot >= n_slots) __trap();
-  const int r4 = (r + 3) & ~3;
-  const int ldb = expand_ldb(r4);
-  float* bs = fsmem;                                // [kExpandDT][ldb]
-  float* ss = bs + kExpandDT * ldb;                 // [expand_rows][r4]
-  float* ys = ss + expand_rows(blk_t, TM) * r4;     // [4·TM][kExpandDT]
+  const ExpandSmem sm = expand_smem(un.sub_t, r, rc, TM);
+  float* ys = fsmem + (sm.n_ch > 1 ? 2 : 1) * sm.buf;  // [4·TM][kExpandDT]
+  float* park = ys + 4 * TM * kExpandDT;                // [rows][kExpandDT]
+  const float* bsrc = b + (static_cast<int64_t>(slot) * d_out + c0) * r;
+  const float* ssrc = s + (static_cast<int64_t>(blk) * blk_t + t0) * r;
 
-  // the CTA's B columns and the block's rows of s, every load in flight
-  load_rank_rows(bs, ldb, b + (static_cast<int64_t>(slot) * d_out + c0) * r, r, ncols, r4,
-                 vec_in);
-  load_rank_rows(ss, r4, s + static_cast<int64_t>(blk) * blk_t * r, r, blk_t, r4, vec_in);
-  attn::cp_async_commit();
-  attn::cp_async_wait<0>();
-  __syncthreads();
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    for (int e = tid; e < ncols * ldb; e += kThreads) bs[e] = round_bf16(bs[e]);
-    __syncthreads();
-  }
+  // chunk ch's B columns and rows of s into buffer buf, every load in flight
+  auto load = [&](int ch, int buf) {
+    const int k0 = ch * rc;
+    const int w = min(rc, r - k0);
+    float* bs = fsmem + buf * sm.buf;
+    load_rank_rows(bs, sm.ldb, bsrc + k0, r, w, ncols, (w + 3) & ~3, vec_in);
+    load_rank_rows(bs + kExpandDT * sm.ldb, sm.rc4, ssrc + k0, r, w, nt, (w + 3) & ~3, vec_in);
+    attn::cp_async_commit();
+  };
 
   const int w = tid >> 5, lane = tid & 31;
-  for (int tp = 0; tp < blk_t; tp += 4 * TM) {
-    float acc[TM][kExpandCJ];
+  load(0, 0);
+  for (int ch = 0; ch < sm.n_ch; ++ch) {
+    if (ch + 1 < sm.n_ch) {  // the next chunk loads while this one computes
+      load(ch + 1, (ch + 1) & 1);
+      attn::cp_async_wait<1>();
+    } else {
+      attn::cp_async_wait<0>();
+    }
+    __syncthreads();
+    float* bs = fsmem + (ch & 1) * sm.buf;
+    const float* ss = bs + kExpandDT * sm.ldb;
+    const int w4 = (min(rc, r - ch * rc) + 3) & ~3;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      for (int e = tid; e < ncols * sm.ldb; e += kThreads) bs[e] = round_bf16(bs[e]);
+      __syncthreads();
+    }
+    const bool last = ch + 1 == sm.n_ch;
+    for (int tp = 0; tp < nt; tp += 4 * TM) {
+      float acc[TM][kExpandCJ];
+      float* pk = park + (tp + w * TM) * kExpandDT + lane;
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < kExpandCJ; ++j) acc[i][j] = 0.f;
-    const float* srow = ss + (tp + w * TM) * r4;
-    for (int k = 0; k < r4; k += 4) {
-      float4 bv[kExpandCJ];
+        for (int j = 0; j < kExpandCJ; ++j) acc[i][j] = ch ? pk[i * kExpandDT + 32 * j] : 0.f;
+      const float* srow = ss + (tp + w * TM) * sm.rc4;
+      for (int k = 0; k < w4; k += 4) {
+        float4 bv[kExpandCJ];
 #pragma unroll
-      for (int j = 0; j < kExpandCJ; ++j)
-        bv[j] = *reinterpret_cast<const float4*>(bs + (lane + 32 * j) * ldb + k);
+        for (int j = 0; j < kExpandCJ; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(bs + (lane + 32 * j) * sm.ldb + k);
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float4 sv = *reinterpret_cast<const float4*>(srow + i * r4 + k);
+        for (int i = 0; i < TM; ++i) {
+          const float4 sv = *reinterpret_cast<const float4*>(srow + i * sm.rc4 + k);
 #pragma unroll
-        for (int j = 0; j < kExpandCJ; ++j) acc[i][j] = dot4(sv, bv[j], acc[i][j]);
+          for (int j = 0; j < kExpandCJ; ++j) acc[i][j] = dot4(sv, bv[j], acc[i][j]);
+        }
       }
-    }
+      if (!last) {  // park the tile: this thread takes it up at the next chunk
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+        for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < kExpandCJ; ++j) ys[(w * TM + i) * kExpandDT + lane + 32 * j] = acc[i][j];
-    __syncthreads();
-    const int rows = min(4 * TM, blk_t - tp);
-    for (int e = tid; e < rows * (kExpandDT / 4); e += kThreads) {
-      const int t = e / (kExpandDT / 4), c = 4 * (e % (kExpandDT / 4));
-      store4(yb + static_cast<int64_t>(tp + t) * d_out + c,
-             *reinterpret_cast<const float4*>(ys + t * kExpandDT + c), ncols - c, vec_y);
+          for (int j = 0; j < kExpandCJ; ++j) pk[i * kExpandDT + 32 * j] = acc[i][j];
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < kExpandCJ; ++j)
+          ys[(w * TM + i) * kExpandDT + lane + 32 * j] = acc[i][j];
+      __syncthreads();
+      const int rows = min(4 * TM, nt - tp);
+      for (int e = tid; e < rows * (kExpandDT / 4); e += kThreads) {
+        const int t = e / (kExpandDT / 4), c = 4 * (e % (kExpandDT / 4));
+        store4(yb + static_cast<int64_t>(tp + t) * d_out + c,
+               *reinterpret_cast<const float4*>(ys + t * kExpandDT + c), ncols - c, vec_y);
+      }
+      __syncthreads();
     }
-    __syncthreads();
+    if (!last) __syncthreads();  // this buffer is free before chunk ch + 2 loads into it
   }
 }
 
@@ -617,18 +738,28 @@ template <typename T> using ShrinkKernel = void (*)(const T*, const float*, cons
                                                     float*, float*, int*, int, int, int, int, int,
                                                     int, bool);
 
-template <typename T, int MT> ShrinkKernel<T> shrink_kernel_ntw(int ntw) {
-  if (ntw == 1) return sgmv_shrink_kernel<T, MT, 1>;
-  if (ntw == 2) return sgmv_shrink_kernel<T, MT, 2>;
-  return sgmv_shrink_kernel<T, MT, 4>;
+template <typename T, int MT, bool UNITS> ShrinkKernel<T> shrink_kernel_ntw(int ntw) {
+  if (ntw == 1) return sgmv_shrink_kernel<T, MT, 1, UNITS>;
+  if (ntw == 2) return sgmv_shrink_kernel<T, MT, 2, UNITS>;
+  return sgmv_shrink_kernel<T, MT, 4, UNITS>;
 }
 
+// A block of more than one unit has 64-rank chunks (4 rank tiles) or
+// row slices of 65..128 rows (9..16 token tiles, four a warp), so UNITS is
+// built only for 4 rank tiles or 4 token tiles a warp.
 template <typename T> ShrinkKernel<T> shrink_kernel(int blk_t, int r) {
   const ShrinkShape sh = shrink_shape(blk_t, r);
-  if (sh.mt == 1) return shrink_kernel_ntw<T, 1>(sh.ntw);
-  if (sh.mt == 2) return shrink_kernel_ntw<T, 2>(sh.ntw);
-  if (sh.mt == 3) return shrink_kernel_ntw<T, 3>(sh.ntw);
-  return shrink_kernel_ntw<T, 4>(sh.ntw);
+  const Units un = units_of(blk_t, r);
+  if (un.n_sub * un.n_rc > 1) {
+    if (sh.mt == 4) return shrink_kernel_ntw<T, 4, true>(sh.ntw);
+    if (sh.mt == 1) return sgmv_shrink_kernel<T, 1, 4, true>;
+    if (sh.mt == 2) return sgmv_shrink_kernel<T, 2, 4, true>;
+    return sgmv_shrink_kernel<T, 3, 4, true>;
+  }
+  if (sh.mt == 1) return shrink_kernel_ntw<T, 1, false>(sh.ntw);
+  if (sh.mt == 2) return shrink_kernel_ntw<T, 2, false>(sh.ntw);
+  if (sh.mt == 3) return shrink_kernel_ntw<T, 3, false>(sh.ntw);
+  return shrink_kernel_ntw<T, 4, false>(sh.ntw);
 }
 
 template <typename T> cudaError_t shrink_ctas(int blk_t, int r, int* ctas) {
@@ -668,52 +799,58 @@ template <typename T, int TM>
 cudaError_t launch_expand_tm(const float* s, const float* b, const int* slots, const int* n_used,
                              float* y, int n_blocks, int blk_t, int d_out, int r, int n_slots,
                              cudaStream_t stream) {
-  const int r4 = (r + 3) & ~3;
-  const size_t smem = (static_cast<size_t>(kExpandDT) * expand_ldb(r4) +
-                       static_cast<size_t>(expand_rows(blk_t, TM)) * r4 +
-                       static_cast<size_t>(4 * TM) * kExpandDT) *
-                      sizeof(float);
+  const Units un = units_of(blk_t, r);
+  // one chunk of every rank up to kExpandOneShot, chunks of kRankChunk above
+  const int rc = ((r + 3) & ~3) <= kExpandOneShot ? r : kRankChunk;
+  const size_t smem = expand_smem(un.sub_t, r, rc, TM).floats(TM) * sizeof(float);
   auto kernel = sgmv_expand_kernel<T, TM>;
   cudaError_t err = attn::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const bool vec_in = r % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(b) % 16 == 0;
   const bool vec_y = d_out % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const dim3 grid(n_blocks, (d_out + kExpandDT - 1) / kExpandDT);
-  kernel<<<grid, kThreads, smem, stream>>>(s, b, slots, n_used, y, n_blocks, blk_t, d_out, r,
+  const dim3 grid(n_blocks * un.n_sub, (d_out + kExpandDT - 1) / kExpandDT);
+  kernel<<<grid, kThreads, smem, stream>>>(s, b, slots, n_used, y, n_blocks, blk_t, d_out, r, rc,
                                            n_slots, vec_in, vec_y);
   return cudaGetLastError();
 }
 
+// the register tile's tokens by the rows a CTA takes
 template <typename T>
 cudaError_t launch_expand(const float* s, const float* b, const int* slots, const int* n_used,
                           float* y, int n_blocks, int blk_t, int d_out, int r, int n_slots,
                           cudaStream_t stream) {
-  if (blk_t <= 8)
+  const int sub_t = units_of(blk_t, r).sub_t;
+  if (sub_t <= 8)
     return launch_expand_tm<T, 2>(s, b, slots, n_used, y, n_blocks, blk_t, d_out, r, n_slots,
                                   stream);
-  if (blk_t <= 16)
+  if (sub_t <= 16)
     return launch_expand_tm<T, 4>(s, b, slots, n_used, y, n_blocks, blk_t, d_out, r, n_slots,
                                   stream);
   return launch_expand_tm<T, 8>(s, b, slots, n_used, y, n_blocks, blk_t, d_out, r, n_slots,
                                 stream);
 }
 
+// what the kernels index: rows, units and every output offset in range
 bool shape_ok(int n_blocks, int blk_t, int r) {
-  return n_blocks >= 1 && blk_t >= 1 && blk_t <= kMaxBlk && r >= 1 && r <= kMaxRank;
+  return n_blocks >= 1 && blk_t >= 1 && r >= 1 &&
+         static_cast<int64_t>(blk_t) * r <= INT32_MAX &&
+         static_cast<int64_t>(n_blocks) * units_of(blk_t, r).n_sub <= INT32_MAX;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Limits and constants the Python wrapper checks and mirrors.
+// Constants the Python wrapper mirrors (sgmv.shrink_work, sgmv.units) and
+// checks when it binds the library.
 int sgmv_shrink_tile() { return kKC; }
-int sgmv_max_rank() { return kMaxRank; }
-int sgmv_max_blk_t() { return kMaxBlk; }
+int sgmv_rank_chunk() { return kRankChunk; }
+int sgmv_sub_blk_t() { return kSubBlk; }
 
 // The shrink grid for (blk_t, r, x_dtype): as many CTAs as the card holds
-// at once. Returns it (> 0), or minus a CUDA error code.
+// at once of the kernel (blk_t, r) takes. Returns it (> 0), or minus a CUDA
+// error code.
 int sgmv_shrink_ctas(int blk_t, int r, int x_dtype) {
   if (!shape_ok(1, blk_t, r)) return -static_cast<int>(cudaErrorInvalidValue);
   int ctas = 0;
@@ -725,8 +862,9 @@ int sgmv_shrink_ctas(int blk_t, int r, int x_dtype) {
 
 // x: [n_blocks·blk_t, d_in] (x_dtype); a: [n_slots, r, d_in] f32;
 // block_slots: [n_blocks] int32; n_used: one int32 (null: n_blocks);
-// out: [n_blocks·blk_t, r] f32; part: [grid·blk_t·r] f32 scratch;
-// arrived: [n_blocks] int32, zero before and after the call; grid from
+// out: [n_blocks·blk_t, r] f32; part: [grid·sub_t·rcw] f32 scratch (a
+// unit's rows and ranks); arrived: [n_blocks·n_sub·n_rc] int32 (one a
+// unit), zero before and after the call; grid from
 // sgmv_shrink_ctas. x_dtype is also the type weights are rounded to.
 // dtype codes: 0 f32, 1 bf16.
 int sgmv_shrink_launch(const void* x, const void* a, const void* block_slots, const void* n_used,

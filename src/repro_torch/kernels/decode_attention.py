@@ -20,11 +20,15 @@ split of each (row, kv head) to finish merges the splits' partial
 softmaxes in split order, so two calls give bit-equal outputs. See the
 source's note.
 
+Any head dim: rows are padded in shared memory to the next width the
+kernel is built for (``padded_head_dim``); zero columns change no value.
+
 The wrapper takes the plain PyTorch version (``flash_decode_plain``)
-only for a tensor on the CPU. For a CUDA tensor it launches the kernel or
-raises (also for an input that requires grad: the kernel has no
-backward, ``_build.refuse_grad``). ``launches`` counts wrapper calls that launch the kernel (one,
-whether the call makes one CUDA launch or two).
+only for a tensor on the CPU. For a CUDA tensor it launches the kernel on
+the tensor's card or raises (also for an input that requires grad: the
+kernel has no backward, ``_build.refuse_grad``). ``launches`` counts
+wrapper calls that launch the kernel (one, whether the call makes one
+CUDA launch or two).
 """
 from __future__ import annotations
 
@@ -38,7 +42,12 @@ from repro_torch.kernels import _build, ref
 # kernel launches; incremented only where the kernel launches
 launches: Dict[str, int] = {"flash_decode": 0}
 
-HEAD_DIMS = (32, 64, 80, 128, 256)
+# the widths the kernel is built for; a head dim runs at the next one (its
+# rows padded with zeros in shared memory), above 256 at hd rounded up to 16
+# (csrc/decode_attention.cu, csrc/flash_prefill.cu)
+KERNEL_WIDTHS = (32, 64, 80, 96, 128, 160, 192, 256)
+# the most dynamic shared memory one CTA may have on an H100 (227 KiB)
+MAX_SMEM = 232448
 # split plan: at least two CTAs on each of an H100's 132 SMs, splits of at
 # least 32 keys (fewer partials to merge) where C has them, and a split's
 # K/V and scores within 64 KiB of shared memory (three CTAs per SM fit)
@@ -65,11 +74,28 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("decode_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_decode_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
-                                            i, i, i, i, i, i, i, i, i,
+                                            i, i, i, i, i, i, i, i, i, i,
                                             f, i, i, f, p]
         lib.flash_decode_launch.restype = i
         _LIB = lib
     return _LIB
+
+
+def padded_head_dim(hd: int) -> int:
+    """The width head dim ``hd`` runs at in both attention kernels: the
+    next of ``KERNEL_WIDTHS``, or ``hd`` rounded up to 16 above 256."""
+    if hd < 1:
+        raise ValueError(f"head dim must be >= 1, got {hd}")
+    return next((w for w in KERNEL_WIDTHS if w >= hd), -(-hd // 16) * 16)
+
+
+def split_smem(g: int, hdp: int, kv_itemsize: int, keys: int) -> int:
+    """Shared memory of one decode CTA at padded width ``hdp``: per key, K
+    (padded 16 bytes) and V rows, a score per query row, its position and
+    the int8 scales; per CTA, q in f32 and each query row's (m, l)."""
+    per_key = 2 * hdp * kv_itemsize + 16 + 4 * g + 4 + (
+        8 if kv_itemsize == 1 else 0)
+    return 4 * g * (hdp + 2) + keys * per_key
 
 
 def split_plan(b: int, kh: int, c: int, g: int, hd: int,
@@ -77,14 +103,17 @@ def split_plan(b: int, kh: int, c: int, g: int, hd: int,
     """``(keys_per_split, n_splits)`` for the decode kernel: the fewest
     splits that give ``SPLIT_CTAS`` CTAs over ``b * kh`` (row, kv head)
     pairs, no split under ``MIN_SPLIT_KEYS`` keys unless C is, none over
-    what ``SPLIT_SMEM`` holds. Contiguous splits covering C exactly, none
+    what ``SPLIT_SMEM`` holds at the padded head dim (one key at least,
+    when q alone fills it). Contiguous splits covering C exactly, none
     empty; the last one ragged. At the main path's shape (B 8, KH 8,
     C 256, g 4, hd 128, bf16): 5 splits of 52 keys, 320 CTAs."""
-    # shared memory per key: K (padded 16 bytes) and V rows, a score per
-    # query row, its position, and the int8 scales; per CTA: q in f32
-    per_key = 2 * hd * kv_itemsize + 16 + 4 * g + 4 + (
-        8 if kv_itemsize == 1 else 0)
-    max_keys = max(1, (SPLIT_SMEM - 4 * g * (hd + 2)) // per_key)
+    hdp = padded_head_dim(hd)
+    fixed = split_smem(g, hdp, kv_itemsize, 0)
+    per_key = split_smem(g, hdp, kv_itemsize, 1) - fixed
+    if fixed + per_key > MAX_SMEM:
+        raise ValueError(f"flash_decode: q of {g} heads x {hd} and one key "
+                         f"exceed a CTA's {MAX_SMEM} bytes of shared memory")
+    max_keys = max(1, (SPLIT_SMEM - fixed) // per_key)
     want = -(-SPLIT_CTAS // (b * kh))
     keys = max(-(-c // want), min(MIN_SPLIT_KEYS, c))
     keys = min(keys, max_keys)
@@ -178,41 +207,40 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   or v_scale.dtype != torch.float32):
         raise TypeError("flash_decode: scales must be float32")
     b, h, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_decode: head dim {hd} not in {HEAD_DIMS}")
     tensors = [q, k, v, kv_pos] + ([k_scale, v_scale] if quant else [])
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_decode: tensors must be contiguous")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_decode: k and v must be 16-byte aligned")
-    qp = torch.as_tensor(q_pos, dtype=torch.int32, device=q.device)
-    qp = qp.expand(b).contiguous()
     c, kh = k.shape[1], k.shape[2]
     g = h // kh
+    hdp = padded_head_dim(hd)
     keys, n_splits = split_plan(b, kh, c, g, hd, k.element_size())
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    part_acc = part_ml = arrived = None
-    if n_splits > 1:    # each split's (acc, m, l), merged by the last split
-        part_acc = torch.empty(b * kh * n_splits * g * hd,
-                               dtype=torch.float32, device=q.device)
-        part_ml = torch.empty(b * kh * n_splits * g * 2,
-                              dtype=torch.float32, device=q.device)
-        key = (q.device.index, stream)
-        arrived = _ARRIVED.get(key)
-        if arrived is None or arrived.numel() < b * kh:
-            arrived = _ARRIVED[key] = torch.zeros(
-                b * kh, dtype=torch.int32, device=q.device)
-    err = _lib().flash_decode_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_scale.data_ptr() if quant else None,
-        v_scale.data_ptr() if quant else None, kv_pos.data_ptr(),
-        qp.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr() if n_splits > 1 else None,
-        part_ml.data_ptr() if n_splits > 1 else None,
-        arrived.data_ptr() if n_splits > 1 else None, b, c, kh, g, hd,
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], keys, n_splits,
-        hd ** -0.5, window or 0, int(chunked), softcap or 0.0, stream)
+    lib = _lib()
+    with _build.on_device(q.device):
+        qp = torch.as_tensor(q_pos, dtype=torch.int32, device=q.device)
+        qp = qp.expand(b).contiguous()
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        part_acc = part_ml = arrived = None
+        if n_splits > 1:    # each split's (acc, m, l), merged by the last
+            part_acc = torch.empty(b * kh * n_splits * g * hdp,
+                                   dtype=torch.float32, device=q.device)
+            part_ml = torch.empty(b * kh * n_splits * g * 2,
+                                  dtype=torch.float32, device=q.device)
+            key = (q.device.index, stream)
+            arrived = _ARRIVED.get(key)
+            if arrived is None or arrived.numel() < b * kh:
+                arrived = _ARRIVED[key] = torch.zeros(
+                    b * kh, dtype=torch.int32, device=q.device)
+        err = lib.flash_decode_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None, kv_pos.data_ptr(),
+            qp.data_ptr(), out.data_ptr(),
+            part_acc.data_ptr() if n_splits > 1 else None,
+            part_ml.data_ptr() if n_splits > 1 else None,
+            arrived.data_ptr() if n_splits > 1 else None, b, c, kh, g, hd,
+            hdp, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], keys, n_splits,
+            hd ** -0.5, window or 0, int(chunked), softcap or 0.0, stream)
     if err:
         raise RuntimeError(f"flash_decode: kernel launch failed with CUDA "
                            f"error {err}")

@@ -20,10 +20,16 @@ the source's note). bf16 runs both products on the tensor cores
 K/V tile; f32 runs them on CUDA cores, since the tensor cores have no
 f32 path that meets f32's tolerance.
 
+Any head dim up to ``MAX_HEAD_DIM``: up to 256 the rows are padded in
+shared memory to the next width the templates are built for (zero
+columns change no value), above 256 (and f32 off those widths) a
+CUDA-core kernel takes the width at run time.
+
 The wrapper takes the plain PyTorch version (``flash_prefill_plain``)
-only for a tensor on the CPU. For a CUDA tensor it launches the kernel or
-raises (also for an input that requires grad: the kernel has no
-backward, ``_build.refuse_grad``). ``launches`` counts kernel launches.
+only for a tensor on the CPU. For a CUDA tensor it launches the kernel on
+the tensor's card or raises (also for an input that requires grad: the
+kernel has no backward, ``_build.refuse_grad``). ``launches`` counts
+kernel launches.
 """
 from __future__ import annotations
 
@@ -33,12 +39,16 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import HEAD_DIMS, check_mask_args
+from repro_torch.kernels.decode_attention import check_mask_args
 
 # kernel launches; incremented only where the kernel launches
 launches: Dict[str, int] = {"flash_prefill": 0}
 
 NEG_INF = -1e30
+# the largest head dim the kernels take: the wide kernel's q tile, running
+# output and one 8-key K/V tile fill a CTA's 227 KiB of shared memory
+# (csrc/flash_prefill.cu flash_prefill_max_head_dim; checked when bound)
+MAX_HEAD_DIM = 1600
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -58,6 +68,12 @@ def _lib() -> ctypes.CDLL:
                                              i, i, i, i, i, i, i,
                                              f, i, i, i, f, p]
         lib.flash_prefill_launch.restype = i
+        lib.flash_prefill_max_head_dim.argtypes = []
+        lib.flash_prefill_max_head_dim.restype = i
+        if lib.flash_prefill_max_head_dim() != MAX_HEAD_DIM:
+            raise RuntimeError(f"flash_prefill: library max head dim "
+                               f"{lib.flash_prefill_max_head_dim()} != "
+                               f"{MAX_HEAD_DIM}")
         _LIB = lib
     return _LIB
 
@@ -141,23 +157,23 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_prefill: head dim {hd} not in {HEAD_DIMS}")
-    qpos, kpos = (t if t is None else t.to(torch.int32)
-                  for t in (qpos, kpos))
-    tensors = [t for t in (q, k, v, qpos, kpos) if t is not None]
-    if not all(t.is_contiguous() for t in tensors):
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_prefill: head dim {hd} > {MAX_HEAD_DIM}, the "
+                         "most a CTA's shared memory holds")
+    if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_prefill: tensors must be contiguous")
-    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_prefill: q, k and v must be 16-byte aligned")
-    out = torch.empty_like(q)
-    err = _lib().flash_prefill_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        qpos.data_ptr() if qpos is not None else None,
-        kpos.data_ptr() if kpos is not None else None, out.data_ptr(),
-        b, sq, skv, h, kh, hd, _DTYPE_CODE[q.dtype], hd ** -0.5,
-        int(causal), window or 0, int(chunked), softcap or 0.0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    lib = _lib()
+    with _build.on_device(q.device):
+        qpos, kpos = (t if t is None else t.to(torch.int32).contiguous()
+                      for t in (qpos, kpos))
+        out = torch.empty_like(q)
+        err = lib.flash_prefill_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            qpos.data_ptr() if qpos is not None else None,
+            kpos.data_ptr() if kpos is not None else None, out.data_ptr(),
+            b, sq, skv, h, kh, hd, _DTYPE_CODE[q.dtype], hd ** -0.5,
+            int(causal), window or 0, int(chunked), softcap or 0.0,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_prefill: kernel launch failed with CUDA "
                            f"error {err}")

@@ -156,11 +156,13 @@ def paged_gather_pages(arena: torch.Tensor,
     if out.numel() == 0:
         return out
     page_bytes = bs * f * arena.element_size()
-    err = _lib().paged_gather_launch(
-        arena.data_ptr(), tables.data_ptr(), out.data_ptr(), ng, n_pages, b,
-        mb, page_bytes,
-        vec_bytes(page_bytes, arena.data_ptr(), out.data_ptr()),
-        torch.cuda.current_stream(arena.device).cuda_stream)
+    lib = _lib()
+    with _build.on_device(arena.device):
+        err = lib.paged_gather_launch(
+            arena.data_ptr(), tables.data_ptr(), out.data_ptr(), ng, n_pages,
+            b, mb, page_bytes,
+            vec_bytes(page_bytes, arena.data_ptr(), out.data_ptr()),
+            torch.cuda.current_stream(arena.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_gather_pages: kernel launch failed with "
                            f"CUDA error {err}")

@@ -16,22 +16,27 @@ outputs are zero: the kernels store the zeros and read no weights for
 them, and the host never learns ``n_used``.
 
 What bounds them on an H100: bytes (at rank r both products do about
-2·r FLOPs per element they read or write). ``sgmv_shrink`` is one launch
-of as many CTAs as the card holds at once; each reads ``n_used`` and
-takes its share of the used blocks' ``d_in`` (``shrink_work`` mirrors
-that split), keeps up to four 128-column tiles in flight as 16-byte
-``cp.async`` into a ring of shared-memory stages, runs bf16 products on
-the tensor cores (f32 on CUDA cores), and the last split of a block to
-finish sums the splits' partials in split order (deterministic).
-``sgmv_expand`` keeps each CTA's B columns in flight at once, register
-tiles of outputs and 16-byte stores. See the source's note.
+2·r FLOPs per element they read or write). Any rank and any ``blk_t``
+are taken: a block's [blk_t, r] tile is cut into units of at most
+``SUB_BLK_T`` rows and ``RANK_CHUNK`` ranks (``units``), which the
+kernels derive on the device; at blk_t ≤ 128 and r ≤ 64 a block is one
+unit. ``sgmv_shrink`` is one launch of as many CTAs as the card holds at
+once; each reads ``n_used`` and takes its share of the used blocks'
+units and ``d_in`` (``shrink_work`` mirrors that split), keeps up to
+four 128-column tiles in flight as 16-byte ``cp.async`` into a ring of
+shared-memory stages, runs bf16 products on the tensor cores (f32 on
+CUDA cores), and the last split of a unit to finish sums the splits'
+partials in split order (deterministic). ``sgmv_expand`` keeps each
+CTA's B columns in flight at once (a rank above 128 in chunks of 64,
+the next loading while one computes), register tiles of outputs and
+16-byte stores. See the source's note.
 
 Each wrapper takes the plain PyTorch version (``*_plain``) only for a
-tensor on the CPU. For a CUDA tensor it launches the kernel or raises
-(also for an input that requires grad: the kernels have no backward);
-the kernels take the adapter pool in f32 only, the serving pool's dtype
-(``init_lora_stack``), ranks up to ``MAX_RANK`` and blocks of up to
-``MAX_BLK_T`` rows. ``launches`` counts kernel launches per wrapper.
+tensor on the CPU. For a CUDA tensor it launches the kernel on the
+tensor's card or raises (also for an input that requires grad: the
+kernels have no backward); the kernels take the adapter pool in f32
+only, the serving pool's dtype (``init_lora_stack``). ``launches``
+counts kernel launches per wrapper.
 """
 from __future__ import annotations
 
@@ -43,20 +48,21 @@ import torch
 from repro_torch.kernels import _build
 
 DEFAULT_BLK_T = 128
-# the kernels' limits and shrink's d_in tile (csrc/sgmv.cu kMaxRank,
-# kMaxBlk, kKC; checked against the library when it is bound)
-MAX_RANK = 64
-MAX_BLK_T = 128
+# shrink's d_in tile and a unit's ranks and rows (csrc/sgmv.cu kKC,
+# kRankChunk, kSubBlk; checked against the library when it is bound)
 SHRINK_TILE = 128
+RANK_CHUNK = 64
+SUB_BLK_T = 128
 
 # kernel launches per wrapper; incremented only where a kernel launches
 launches: Dict[str, int] = {"sgmv_shrink": 0, "sgmv_expand": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: Optional[ctypes.CDLL] = None
-# shrink grid per (device, blk_t, r, x dtype code)
-_CTAS: Dict[Tuple[int, int, int, int], int] = {}
-# per (device, stream): shrink's int32 arrival counts, one per block (zero
+# shrink grid per (device, a unit's rows, a unit's ranks, more than one unit
+# a block, x dtype code): what picks the kernel
+_CTAS: Dict[Tuple[int, int, int, bool, int], int] = {}
+# per (device, stream): shrink's int32 arrival counts, one per unit (zero
 # between calls: the kernel's merging CTA resets its count, so they are
 # zeroed once, when made or grown), and its f32 partial-sum scratch
 _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -81,42 +87,70 @@ def _lib() -> ctypes.CDLL:
         lib.sgmv_expand_launch.restype = i
         lib.sgmv_shrink_ctas.argtypes = [i, i, i]
         lib.sgmv_shrink_ctas.restype = i
-        for name in ("sgmv_shrink_tile", "sgmv_max_rank", "sgmv_max_blk_t"):
+        for name in ("sgmv_shrink_tile", "sgmv_rank_chunk", "sgmv_sub_blk_t"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
-        got = (lib.sgmv_shrink_tile(), lib.sgmv_max_rank(),
-               lib.sgmv_max_blk_t())
-        if got != (SHRINK_TILE, MAX_RANK, MAX_BLK_T):
+        got = (lib.sgmv_shrink_tile(), lib.sgmv_rank_chunk(),
+               lib.sgmv_sub_blk_t())
+        if got != (SHRINK_TILE, RANK_CHUNK, SUB_BLK_T):
             raise RuntimeError(f"sgmv: library constants {got} != "
-                               f"{(SHRINK_TILE, MAX_RANK, MAX_BLK_T)}")
+                               f"{(SHRINK_TILE, RANK_CHUNK, SUB_BLK_T)}")
         _LIB = lib
     return _LIB
 
 
-def shrink_splits(n_used: int, d_in: int, grid: int) -> int:
-    """S, the splits of each used block's ``d_in`` tiles, as each CTA of
+def units(blk_t: int, r: int) -> Tuple[int, int, int, int]:
+    """How the kernels cut a block's [blk_t, r] tile of s, as they derive
+    it on the device: ``(n_sub, sub_t, n_rc, rcw)``, ``n_sub`` row slices
+    of ``sub_t`` rows (the last one ragged; a block of k·128 rows is k
+    slices of 128 with the block's slot) times ``n_rc`` rank chunks of
+    ``rcw`` ranks (the last one ragged). Unit u of a block is row slice
+    u // n_rc, rank chunk u % n_rc."""
+    n_sub = -(-blk_t // SUB_BLK_T)
+    return n_sub, -(-blk_t // n_sub), -(-r // RANK_CHUNK), min(r, RANK_CHUNK)
+
+
+def unit_tile(unit: int, blk_t: int, r: int) -> Tuple[int, int, int, int,
+                                                       int]:
+    """Unit ``unit`` (over every block, block-major) as (block, first row
+    in the block, rows, first rank, ranks)."""
+    n_sub, sub_t, n_rc, _ = units(blk_t, r)
+    blk, u = divmod(unit, n_sub * n_rc)
+    t0, r0 = u // n_rc * sub_t, u % n_rc * RANK_CHUNK
+    return blk, t0, min(sub_t, blk_t - t0), r0, min(RANK_CHUNK, r - r0)
+
+
+def shrink_splits(n_used: int, d_in: int, grid: int, *,
+                  blk_t: int = DEFAULT_BLK_T, r: int = RANK_CHUNK) -> int:
+    """S, the splits of each used unit's ``d_in`` tiles, as each CTA of
     ``sgmv_shrink``'s grid derives it on the device from ``n_used``."""
+    n_sub, _, n_rc, _ = units(blk_t, r)
+    used = n_used * n_sub * n_rc
     kt = -(-d_in // SHRINK_TILE)
-    return max(1, min(grid // n_used, kt)) if n_used > 0 else 1
+    return max(1, min(grid // used, kt)) if used > 0 else 1
 
 
-def shrink_work(n_used: int, d_in: int,
-                grid: int) -> List[List[Tuple[int, int, int, int]]]:
+def shrink_work(n_used: int, d_in: int, grid: int, *,
+                blk_t: int = DEFAULT_BLK_T, r: int = RANK_CHUNK
+                ) -> List[List[Tuple[int, int, int, int]]]:
     """Mirror of ``sgmv_shrink``'s device-side work split: for each of the
-    grid's CTAs, the items it takes, in order, as (block, split, first
-    column, end column). Item i is (block i // S, split i % S) and CTA g
-    takes items g, g + grid, ...; split j of a block covers d_in tiles
+    grid's CTAs, the items it takes, in order, as (unit, split, first
+    column, end column); ``unit_tile`` names a unit's block, rows and
+    ranks (at blk_t ≤ 128 and r ≤ 64 the unit is the block). Item i is
+    (unit i // S, split i % S) over the n_used blocks' units and CTA g
+    takes items g, g + grid, ...; split j of a unit covers d_in tiles
     [j·kt // S, (j+1)·kt // S) of ``SHRINK_TILE`` columns. With S > 1 item
-    i's partial goes to scratch row i, and the block's last split to
-    arrive sums rows block·S .. block·S + S - 1 in that order."""
+    i's partial goes to scratch row i, and the unit's last split to arrive
+    sums rows unit·S .. unit·S + S - 1 in that order."""
+    n_sub, _, n_rc, _ = units(blk_t, r)
     kt = -(-d_in // SHRINK_TILE)
-    s = shrink_splits(n_used, d_in, grid)
+    s = shrink_splits(n_used, d_in, grid, blk_t=blk_t, r=r)
     work: List[List[Tuple[int, int, int, int]]] = [[] for _ in range(grid)]
     for cta in range(grid):
-        for item in range(cta, n_used * s, grid):
-            blk, split = divmod(item, s)
+        for item in range(cta, n_used * n_sub * n_rc * s, grid):
+            unit, split = divmod(item, s)
             t0, t1 = split * kt // s, (split + 1) * kt // s
-            work[cta].append((blk, split, t0 * SHRINK_TILE,
+            work[cta].append((unit, split, t0 * SHRINK_TILE,
                               min(t1 * SHRINK_TILE, d_in)))
     return work
 
@@ -143,8 +177,7 @@ def _check_common(name: str, x: torch.Tensor, w: torch.Tensor,
     return t // blk_t
 
 
-def _check_cuda(name: str, w: torch.Tensor, blk_t: int, r: int,
-                *tensors: torch.Tensor) -> None:
+def _check_cuda(name: str, w: torch.Tensor, *tensors: torch.Tensor) -> None:
     for t in (w, *tensors):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA or CPU tensors, got "
@@ -154,9 +187,6 @@ def _check_cuda(name: str, w: torch.Tensor, blk_t: int, r: int,
     if w.dtype != torch.float32:
         raise TypeError(f"{name}: the kernel takes an f32 adapter pool, got "
                         f"{w.dtype}")
-    if not (1 <= r <= MAX_RANK and 1 <= blk_t <= MAX_BLK_T):
-        raise ValueError(f"{name}: the kernel takes rank 1..{MAX_RANK} and "
-                         f"blk_t 1..{MAX_BLK_T}, got r={r}, blk_t={blk_t}")
 
 
 def _code(name: str, dtype: torch.dtype) -> int:
@@ -208,10 +238,10 @@ def expand_plain(s: torch.Tensor, b_stack: torch.Tensor,
 
 def _shrink_ctas(lib: ctypes.CDLL, device: torch.device, blk_t: int, r: int,
                  code: int) -> int:
-    key = (device.index, blk_t, r, code)
+    n_sub, sub_t, n_rc, rcw = units(blk_t, r)
+    key = (device.index, sub_t, rcw, n_sub * n_rc > 1, code)
     if key not in _CTAS:
-        with torch.cuda.device(device):
-            ctas = lib.sgmv_shrink_ctas(blk_t, r, code)
+        ctas = lib.sgmv_shrink_ctas(blk_t, r, code)
         if ctas <= 0:
             raise RuntimeError(f"sgmv_shrink: sizing the grid failed with "
                                f"CUDA error {-ctas}")
@@ -219,12 +249,12 @@ def _shrink_ctas(lib: ctypes.CDLL, device: torch.device, blk_t: int, r: int,
     return _CTAS[key]
 
 
-def _scratch(device: torch.device, stream: int, n_blocks: int,
+def _scratch(device: torch.device, stream: int, n_units: int,
              n_part: int) -> Tuple[torch.Tensor, torch.Tensor]:
     key = (device.index, stream)
     arrived, part = _SCRATCH.get(key, (None, None))
-    if arrived is None or arrived.numel() < n_blocks:
-        arrived = torch.zeros(n_blocks, dtype=torch.int32, device=device)
+    if arrived is None or arrived.numel() < n_units:
+        arrived = torch.zeros(n_units, dtype=torch.int32, device=device)
     if part is None or part.numel() < n_part:
         part = torch.empty(n_part, dtype=torch.float32, device=device)
     _SCRATCH[key] = (arrived, part)
@@ -247,20 +277,25 @@ def sgmv_shrink(x: torch.Tensor, a_stack: torch.Tensor,
     if x.device.type == "cpu":
         return shrink_plain(x, a_stack, block_slots, blk_t=blk_t,
                             n_used=n_used)
-    _check_cuda("sgmv_shrink", a_stack, blk_t, r, x, block_slots)
+    _check_cuda("sgmv_shrink", a_stack, x, block_slots)
     _build.refuse_grad("sgmv_shrink", x, a_stack)
     if block_slots.dtype != torch.int32:
         raise TypeError("sgmv_shrink: block_slots must be int32")
     code = _code("sgmv_shrink", x.dtype)
     lib = _lib()
-    grid = _shrink_ctas(lib, x.device, blk_t, r, code)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    arrived, part = _scratch(x.device, stream, nb, grid * blk_t * r)
-    out = torch.empty((x.shape[0], r), dtype=torch.float32, device=x.device)
-    err = lib.sgmv_shrink_launch(
-        x.data_ptr(), a_stack.data_ptr(), block_slots.data_ptr(),
-        _ptr(n_used), out.data_ptr(), part.data_ptr(), arrived.data_ptr(),
-        nb, blk_t, d_in, r, n_slots, grid, code, stream)
+    n_sub, sub_t, n_rc, rcw = units(blk_t, r)
+    with _build.on_device(x.device):
+        grid = _shrink_ctas(lib, x.device, blk_t, r, code)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        arrived, part = _scratch(x.device, stream, nb * n_sub * n_rc,
+                                 grid * sub_t * rcw)
+        out = torch.empty((x.shape[0], r), dtype=torch.float32,
+                          device=x.device)
+        err = lib.sgmv_shrink_launch(
+            x.data_ptr(), a_stack.data_ptr(), block_slots.data_ptr(),
+            _ptr(n_used), out.data_ptr(), part.data_ptr(),
+            arrived.data_ptr(), nb, blk_t, d_in, r, n_slots, grid, code,
+            stream)
     if err:
         raise RuntimeError(f"sgmv_shrink: kernel launch failed with CUDA "
                            f"error {err}")
@@ -285,7 +320,7 @@ def sgmv_expand(s: torch.Tensor, b_stack: torch.Tensor,
     if s.device.type == "cpu":
         return expand_plain(s, b_stack, block_slots, blk_t=blk_t,
                             compute_dtype=compute_dtype, n_used=n_used)
-    _check_cuda("sgmv_expand", b_stack, blk_t, r, s, block_slots)
+    _check_cuda("sgmv_expand", b_stack, s, block_slots)
     _build.refuse_grad("sgmv_expand", s, b_stack)
     if s.dtype != torch.float32 or block_slots.dtype != torch.int32:
         raise TypeError("sgmv_expand: s must be float32 and block_slots "
@@ -293,10 +328,12 @@ def sgmv_expand(s: torch.Tensor, b_stack: torch.Tensor,
     code = _code("sgmv_expand", compute_dtype)
     y = torch.empty((s.shape[0], d_out), dtype=torch.float32,
                     device=s.device)
-    err = _lib().sgmv_expand_launch(
-        s.data_ptr(), b_stack.data_ptr(), block_slots.data_ptr(),
-        _ptr(n_used), y.data_ptr(), nb, blk_t, d_out, r, n_slots, code,
-        torch.cuda.current_stream(s.device).cuda_stream)
+    lib = _lib()
+    with _build.on_device(s.device):
+        err = lib.sgmv_expand_launch(
+            s.data_ptr(), b_stack.data_ptr(), block_slots.data_ptr(),
+            _ptr(n_used), y.data_ptr(), nb, blk_t, d_out, r, n_slots, code,
+            torch.cuda.current_stream(s.device).cuda_stream)
     if err:
         raise RuntimeError(f"sgmv_expand: kernel launch failed with CUDA "
                            f"error {err}")

@@ -761,15 +761,17 @@ def test_cuda_sgmv_rank16_qwen2_shapes(dev, dtype, t, d_in, d_out):
     assert err <= tol * want.float().abs().max().item(), err
 
 
-def _captured_step(dev, policy, kv, step, arch="qwen2-0.5b", **attn):
+def _captured_step(dev, policy, kv, step, arch="qwen2-0.5b", cfg_over=None,
+                   **attn):
     """Serve a short trace on the reduced ``arch`` (bf16, the SGMV and
-    attention kernels; ``attn`` overrides its AttentionConfig) and capture
-    the engine's first call of ``step``: (step function, its inputs and
-    output tokens)."""
+    attention kernels; ``cfg_over`` overrides ModelConfig fields, ``attn``
+    its AttentionConfig) and capture the engine's first call of ``step``:
+    (step function, its inputs and output tokens)."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.serving.engine import EdgeLoRAEngine, EngineConfig
     from repro_torch.serving.workload import WorkloadConfig, generate_trace
-    cfg = reduced_config(get_config(arch))
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              **(cfg_over or {}))
     cfg = dataclasses.replace(cfg, dtype="bfloat16", attn=dataclasses.replace(
         cfg.attn, **attn))
     eng = EdgeLoRAEngine(cfg, EngineConfig(
@@ -1899,3 +1901,397 @@ def test_cuda_step_cost_equals_fake_count(dev, kind):
         fake = step_cost(run, *fake_args)
     for key in ("mxu_flops", "vpu_flops", "bytes"):
         assert real[key] == fake[key] > 0, key
+
+
+# ---------------------------------------------------------------------------
+# the kernels' whole domain: any LoRA rank and token block, any head dim,
+# each launch on its tensors' card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("used", ["below", "absent"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [65, 100, 128, 256])
+@pytest.mark.parametrize("blk_t", [8, 128, 200, 256])
+def test_cuda_sgmv_any_rank_and_block_match_plain(dev, blk_t, r, dtype, used):
+    """Ranks past one 64-rank chunk (a ragged last chunk at 65 and 100;
+    expand's rank chunks above 128 at 256) and blocks past 128 rows (200:
+    two slices of 100; 256: two of 128), ragged d_in / d_out, ``n_used``
+    below the block count (zeros past it) and absent. Within 1e-5 of
+    max|plain|; the arrival counters back at zero."""
+    nb = 5
+    x, s, a, b, bs = _sgmv_problem(dev, dtype, blk_t, r, 1000, 333, nb=nb)
+    n_used = (torch.tensor(nb - 2, dtype=torch.int32, device=dev)
+              if used == "below" else None)
+    sgmv.reset_launches()
+    got_s = sgmv.sgmv_shrink(x, a, bs, blk_t=blk_t, n_used=n_used)
+    got_y = sgmv.sgmv_expand(s, b, bs, blk_t=blk_t, compute_dtype=dtype,
+                             n_used=n_used)
+    want_s = sgmv.shrink_plain(x, a, bs, blk_t=blk_t, n_used=n_used)
+    want_y = sgmv.expand_plain(s, b, bs, blk_t=blk_t, compute_dtype=dtype,
+                               n_used=n_used)
+    torch.cuda.synchronize()
+    assert sgmv.launches == {"sgmv_shrink": 1, "sgmv_expand": 1}
+    _sgmv_close(got_s, want_s)
+    _sgmv_close(got_y, want_y)
+    if used == "below":
+        assert not got_s[(nb - 2) * blk_t:].any()
+        assert not got_y[(nb - 2) * blk_t:].any()
+    for arrived, _ in sgmv._SCRATCH.values():
+        assert not arrived.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,d_in,d_out,blk_t", [
+    (99, 333, 1000, 8),      # r % 4 != 0 past a chunk: element-wise loads
+    (130, 4096, 77, 136),    # a 2-rank last chunk, 136 = 68 + 68 rows
+    (1, 64, 16, 300),        # rank 1, three slices of 100
+])
+def test_cuda_sgmv_any_rank_unaligned_shapes(dev, r, d_in, d_out, blk_t):
+    for dtype in (torch.float32, torch.bfloat16):
+        x, s, a, b, bs = _sgmv_problem(dev, dtype, blk_t, r, d_in, d_out,
+                                       nb=4, seed=5)
+        nu = torch.tensor(3, dtype=torch.int32, device=dev)
+        _sgmv_close(sgmv.sgmv_shrink(x, a, bs, blk_t=blk_t, n_used=nu),
+                    sgmv.shrink_plain(x, a, bs, blk_t=blk_t, n_used=nu))
+        _sgmv_close(sgmv.sgmv_expand(s, b, bs, blk_t=blk_t,
+                                     compute_dtype=dtype, n_used=nu),
+                    sgmv.expand_plain(s, b, bs, blk_t=blk_t,
+                                      compute_dtype=dtype, n_used=nu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sgmv_rank128_repeats_are_bit_equal(dev, dtype):
+    """Rank 128 at Llama-3.1-8B's decode step and full prefill group: each
+    split merges in split order per (block, rank chunk), so two calls give
+    the same bits, and the counters are back at zero."""
+    for t, d_in, d_out in ((8, 4096, 4096), (512, 14336, 4096)):
+        gen = torch.Generator(device=dev).manual_seed(t)
+        x = torch.randn(t, d_in, generator=gen, device=dev).to(dtype)
+        a = torch.randn(8, 128, d_in, generator=gen, device=dev)
+        b = torch.randn(8, d_out, 128, generator=gen, device=dev)
+        slots = torch.randint(0, 8, (t,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        blk_t = ops.auto_blk_t(t, 8)
+        plan = ops.plan_grouping(slots, 8, blk_t)
+        xbuf = x.new_zeros((plan.n_padded, d_in))
+        xbuf[plan.padded_pos.long()] = x[plan.perm]
+        outs = [sgmv.sgmv_shrink(xbuf, a, plan.block_slots, blk_t=blk_t,
+                                 n_used=plan.n_used) for _ in range(2)]
+        ys = [sgmv.sgmv_expand(outs[0], b, plan.block_slots, blk_t=blk_t,
+                               compute_dtype=dtype, n_used=plan.n_used)
+              for _ in range(2)]
+        want = sgmv.shrink_plain(xbuf, a, plan.block_slots, blk_t=blk_t,
+                                 n_used=plan.n_used)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1]) and torch.equal(ys[0], ys[1])
+        _sgmv_close(outs[0], want)
+        for arrived, _ in sgmv._SCRATCH.values():
+            assert not arrived.any()
+
+
+@pytest.mark.cuda
+def test_cuda_ops_sgmv_rank128_blk256_makes_no_host_sync(dev):
+    """``ops.sgmv`` at rank 128 with ``blk_t`` 256 (two 128-row slices of
+    each block, two rank chunks, derived on the device) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync, one launch
+    of each kernel, the same bits as the warm call and the reference's
+    f32 math within 1e-5."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    t = 300
+    x = torch.randn(t, 4096, generator=gen, device=dev)
+    a = torch.randn(8, 128, 4096, generator=gen, device=dev) / 128 ** 0.5
+    b = torch.randn(8, 1024, 128, generator=gen, device=dev)
+    slots = torch.randint(0, 8, (t,), generator=gen, device=dev,
+                          dtype=torch.int32)
+
+    def run():
+        return ops.sgmv(x, a, b, slots, 0.5, n_slots=8, blk_t=256)
+
+    want = run()
+    torch.cuda.synchronize()
+    sgmv.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert sgmv.launches == {"sgmv_shrink": 1, "sgmv_expand": 1}
+    assert torch.equal(got, want)
+    from repro_torch.kernels import ref
+    plain = ref.sgmv_ref(x, a, b, slots, 0.5)
+    _sgmv_close(got, plain)
+
+
+# (window, chunked, softcap) at each new head dim
+_HD_MASKS = [(None, False, None), (16, False, 30.0), (16, True, None)]
+# head dims off the built widths (8, 40, 100: padded to 32, 64, 128),
+# on the new ones (96, 160, 192) and past 256 (320, 512: the run-time width)
+_HEAD_DIMS = [8, 40, 96, 100, 160, 192, 320, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", range(len(_HD_MASKS)))
+@pytest.mark.parametrize("qdtype,kvdtype", _KV_TYPES)
+@pytest.mark.parametrize("hd", _HEAD_DIMS)
+def test_cuda_flash_decode_any_head_dim(dev, hd, qdtype, kvdtype, mask):
+    """``flash_decode`` at head dims off the built widths: f32, bf16 and
+    int8 K/V (f32 and bf16 q), GQA 4, a ring split across CTAs (300
+    entries), per-row positions with a wrapped row, a part-filled row and
+    an idle row (the mean of V), window / chunk / softcap. One launch."""
+    from repro_torch.kernels import decode_attention as da
+    window, chunked, softcap = _HD_MASKS[mask]
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    b, h, kh, c = 3, 8, 2, 300
+    q = torch.randn(b, h, hd, generator=gen, device=dev).to(qdtype)
+    scales = {}
+    if kvdtype == torch.int8:
+        k, v = (torch.randint(-127, 128, (b, c, kh, hd), generator=gen,
+                              device=dev, dtype=torch.int8) for _ in "kv")
+        scales = {n: torch.rand(b, c, kh, generator=gen, device=dev) / 127
+                  for n in ("k_scale", "v_scale")}
+    else:
+        k, v = (torch.randn(b, c, kh, hd, generator=gen, device=dev).to(
+            kvdtype) for _ in "kv")
+    idx = torch.arange(c, device=dev, dtype=torch.int32)
+    kv_pos = torch.full((b, c), -1, dtype=torch.int32, device=dev)
+    kv_pos[0] = idx + c
+    kv_pos[1] = torch.where(idx < 170, idx, -1)
+    q_pos = torch.tensor([2 * c - 1, 169, 0], dtype=torch.int32, device=dev)
+    kw = dict(window=window, chunked=chunked, softcap=softcap, **scales)
+    da.reset_launches()
+    got = da.flash_decode(q, k, v, kv_pos, q_pos, **kw)
+    want = da.flash_decode_plain(q, k, v, kv_pos, q_pos, **kw)
+    torch.cuda.synchronize()
+    assert da.launches == {"flash_decode": 1}
+    assert got.shape == q.shape and got.dtype == qdtype
+    _attn_close(got, want, qdtype)
+    vf = v.float() * (scales["v_scale"][..., None] if scales else 1.0)
+    _attn_close(got[2], vf[2].mean(0).repeat_interleave(h // kh, 0), qdtype)
+
+
+# (b, sq, skv, h, kh, offset, causal, window, chunked, softcap)
+_HD_PREFILL = [
+    (2, 45, 45, 8, 2, 0, True, None, False, None),      # GQA 4, ragged
+    (1, 70, 70, 4, 4, 0, True, 16, False, 20.0),        # window, softcap
+    (2, 40, 40, 6, 2, 0, True, 16, True, None),         # chunked, GQA 3
+    (1, 24, 88, 4, 2, 64, True, None, False, None),     # a suffix
+    (2, 33, 50, 4, 1, 0, False, None, False, None),     # non-causal
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(_HD_PREFILL)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", _HEAD_DIMS)
+def test_cuda_flash_prefill_any_head_dim(dev, hd, dtype, case):
+    """``flash_prefill`` at head dims off the built widths, both dtypes
+    (bf16 on the tensor cores up to 256, the run-time-width kernel above),
+    with the masks of the reference: causal, window, chunk, softcap, a
+    suffix over explicit positions, non-causal. One launch."""
+    from repro_torch.kernels import flash_prefill as fp
+    b, sq, skv, h, kh, offset, causal, window, chunked, softcap = \
+        _HD_PREFILL[case]
+    gen = torch.Generator(device=dev).manual_seed(hd + case)
+    q = torch.randn(b, sq, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, skv, kh, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, skv, kh, hd, generator=gen, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, chunked=chunked, softcap=softcap)
+    if offset:
+        kw.update(qpos=torch.arange(offset, offset + sq, dtype=torch.int32,
+                                    device=dev),
+                  kpos=torch.arange(skv, dtype=torch.int32, device=dev))
+    fp.reset_launches()
+    got = fp.flash_prefill(q, k, v, **kw)
+    want = fp.flash_prefill_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fp.launches == {"flash_prefill": 1}
+    assert got.shape == q.shape and got.dtype == dtype
+    _attn_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_largest_head_dim(dev, dtype):
+    """Both kernels at ``flash_prefill.MAX_HEAD_DIM`` (the wide kernel's
+    smallest tile), against their plain versions; one past it, the
+    prefill wrapper raises before launching."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    hd = fp.MAX_HEAD_DIM
+    gen = torch.Generator(device=dev).manual_seed(22)
+    q = torch.randn(1, 20, 4, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(1, 20, 2, hd, generator=gen, device=dev).to(dtype)
+    _attn_close(fp.flash_prefill(q, k, k), fp.flash_prefill_plain(q, k, k),
+                dtype)
+    kv_pos = torch.arange(20, dtype=torch.int32, device=dev)[None]
+    _attn_close(da.flash_decode(q[:, 0], k, k, kv_pos, 19),
+                da.flash_decode_plain(q[:, 0], k, k, kv_pos, 19), dtype)
+    wide = torch.zeros(1, 4, 2, hd + 1, device=dev, dtype=dtype)
+    fp.reset_launches()
+    with pytest.raises(ValueError, match="head dim"):
+        fp.flash_prefill(wide, wide[:, :, :1], wide[:, :, :1])
+    assert fp.launches == {"flash_prefill": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [96, 128])
+def test_cuda_attention_unaligned_tensors(dev, dtype, hd):
+    """q, K and V that start 2 bytes into their buffers (views of a larger
+    allocation): the rows load element by element, with the same result."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def shifted(*shape):
+        n = 1
+        for d in shape:
+            n *= d
+        buf = torch.randn(n + 1, generator=gen, device=dev).to(dtype)
+        t = buf[1:].view(*shape)
+        assert t.data_ptr() % 16
+        return t
+
+    q, k, v = shifted(2, 30, 8, hd), shifted(2, 30, 2, hd), shifted(2, 30, 2,
+                                                                   hd)
+    _attn_close(fp.flash_prefill(q, k, v), fp.flash_prefill_plain(q, k, v),
+                dtype)
+    q3, ring, vring = shifted(2, 8, hd), shifted(2, 40, 2, hd), shifted(
+        2, 40, 2, hd)
+    kv_pos = torch.arange(40, dtype=torch.int32, device=dev).repeat(2, 1)
+    q_pos = torch.tensor([39, 20], dtype=torch.int32, device=dev)
+    _attn_close(da.flash_decode(q3, ring, vring, kv_pos, q_pos),
+                da.flash_decode_plain(q3, ring, vring, kv_pos, q_pos), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,rank", [(40, 65), (96, 96), (192, 128),
+                                     (320, 100)])
+def test_cuda_head_dim_variant_kernel_route_matches_plain_route(dev, hd,
+                                                                rank):
+    """Reduced Llama-3.1-8B at head dims off the built widths and LoRA
+    ranks past 64, in f32 on the card: a prefill and two decode steps on
+    the kernel route (both attention kernels, the SGMV kernels) against
+    the plain route (plain attention, einsum LoRA), within 1e-4 of
+    max|logit|, each decode step from the plain route's cache."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.lora import LoRAMode
+    from repro_torch.models import build_model
+    cfg = reduced_config(get_config("llama3-8b"))
+    cfg = dataclasses.replace(cfg, dtype="float32", head_dim=hd,
+                              lora=dataclasses.replace(cfg.lora, rank=rank))
+    plain = build_model(cfg, dev)
+    params = plain.init(torch.Generator(device=dev).manual_seed(0))
+    kern = build_model(cfg, dev, attn_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pool = plain.init_lora(gen, n_slots=4)
+    for mods in pool["layers"].values():
+        for pair in mods.values():
+            pair["B"].normal_(0.0, 0.02, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 16), generator=gen,
+                           device=dev, dtype=torch.int32)
+    lengths = torch.tensor([16, 9, 5], dtype=torch.int32, device=dev)
+    sids = torch.tensor([2, 0, 3], dtype=torch.int32, device=dev)
+    models = {"plain": (plain, "einsum"), "kernel": (kern, "sgmv")}
+    logits, cache = {}, None
+    for name, (m, backend) in models.items():
+        mode = LoRAMode("batched", sids, cfg.lora.scale, backend)
+        lp, c = m.prefill(params, {"tokens": tokens}, m.init_cache(3, 32),
+                          pool, mode, lengths=lengths)
+        logits[name] = [lp]
+        if name == "plain":
+            cache = c
+    nxt, pos = torch.argmax(logits["plain"][0], -1).int(), lengths.clone()
+    for _ in range(2):
+        for name, (m, backend) in models.items():
+            mode = LoRAMode("batched", sids, cfg.lora.scale, backend)
+            c = {k: {n: v.clone() for n, v in node.items()}
+                 for k, node in cache.items()}
+            ld, c = m.decode_step(params, nxt, c, pos, pool, mode)
+            logits[name].append(ld)
+            if name == "plain":
+                cache = c
+        nxt, pos = torch.argmax(logits["plain"][-1], -1).int(), pos + 1
+    torch.cuda.synchronize()
+    for got, want in zip(logits["kernel"], logits["plain"]):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_cuda_engine_decode_step_hd96_makes_no_host_sync(dev):
+    """The engine's paged decode step of reduced Llama-3.1-8B at head dim
+    96 with LoRA rank 96 (SGMV at two rank chunks, both attention kernels
+    at the width 96, the page gather) under
+    ``torch.cuda.set_sync_debug_mode("error")``: the same tokens as the
+    captured call, one attention launch a layer, the SGMV kernels once
+    per LoRA module and layer."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import paged_gather as pg
+    from repro_torch.configs import get_config, reduced_config
+    lora = reduced_config(get_config("llama3-8b")).lora
+    fn, seen = _captured_step(dev, "edgelora", "paged", "_decode_paged",
+                              "llama3-8b", cfg_over=dict(
+                                  head_dim=96, lora=dataclasses.replace(
+                                      lora, rank=96)))
+    for mod in (sgmv, da, fp, pg):
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tokens, _ = fn(*seen["args"], **seen["kw"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(tokens, seen["tokens"])
+    n = 2  # reduced config: two layers
+    assert sgmv.launches["sgmv_shrink"] == len(lora.target_modules) * n
+    assert da.launches["flash_decode"] == n
+    assert fp.launches["flash_prefill"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_launch_on_their_tensors_card(dev):
+    """Inputs on a card other than the current one: every wrapper launches
+    on its tensors' card (rank 128 and blk_t 256 for the SGMV pair, head
+    dim 96 for the attention pair, the page gather), each result equal to
+    its plain version on that card, and the current device is unchanged.
+    Skips with fewer than two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    torch.cuda.set_device(0)
+    d1 = torch.device("cuda", 1)
+    x, s, a, b, bs = _sgmv_problem(d1, torch.bfloat16, 256, 128, 1000, 333,
+                                   nb=3)
+    nu = torch.tensor(2, dtype=torch.int32, device=d1)
+    _sgmv_close(sgmv.sgmv_shrink(x, a, bs, blk_t=256, n_used=nu),
+                sgmv.shrink_plain(x, a, bs, blk_t=256, n_used=nu))
+    _sgmv_close(sgmv.sgmv_expand(s, b, bs, blk_t=256, n_used=nu,
+                                 compute_dtype=torch.bfloat16),
+                sgmv.expand_plain(s, b, bs, blk_t=256, n_used=nu,
+                                  compute_dtype=torch.bfloat16))
+    gen = torch.Generator(device=d1).manual_seed(0)
+    q = torch.randn(2, 30, 8, 96, generator=gen, device=d1).bfloat16()
+    k = torch.randn(2, 30, 2, 96, generator=gen, device=d1).bfloat16()
+    _attn_close(fp.flash_prefill(q, k, k), fp.flash_prefill_plain(q, k, k),
+                torch.bfloat16)
+    ring = torch.randn(2, 300, 2, 96, generator=gen, device=d1).bfloat16()
+    kv_pos = torch.arange(300, dtype=torch.int32, device=d1).repeat(2, 1)
+    q_pos = torch.tensor([299, 100], dtype=torch.int32, device=d1)
+    q1 = q[:, 0].contiguous()
+    _attn_close(da.flash_decode(q1, ring, ring, kv_pos, q_pos),
+                da.flash_decode_plain(q1, ring, ring, kv_pos, q_pos),
+                torch.bfloat16)
+    arena = torch.randn(2, 6, 16, 128, generator=gen, device=d1).bfloat16()
+    tables = torch.tensor([[0, 2], [5, -1]], dtype=torch.int32, device=d1)
+    assert torch.equal(paged_gather.paged_gather_pages(arena, tables),
+                       paged_gather.paged_gather_pages_plain(arena, tables))
+    torch.cuda.synchronize(d1)
+    assert torch.cuda.current_device() == 0

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: importing ``repro_torch`` (every
-submodule), ``chip_smoke`` and the port's scripts (the four
+submodule), ``chip_smoke``, ``chip_ab`` and the port's scripts (the four
 ``examples/*_torch.py``, ``experiments/hillclimb_torch.py``,
 ``tools/trace_report_torch.py``, ``tools/lint_torch/engine_lint.py``)
 pulls in neither JAX nor the ``repro`` package, and no source of any of
@@ -20,7 +20,8 @@ SCRIPTS = (sorted((ROOT / "examples").glob("*_torch.py"))
            + [ROOT / "experiments" / "hillclimb_torch.py",
               ROOT / "tools" / "trace_report_torch.py",
               ROOT / "tools" / "lint_torch" / "engine_lint.py"])
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", *SCRIPTS]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "chip_ab.py", *SCRIPTS]
 
 _CHECK = """
 import importlib, importlib.util, pkgutil, sys
