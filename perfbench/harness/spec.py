@@ -1,0 +1,107 @@
+"""A cell, as ``BENCHMARK.json`` names it, and the data files the harness
+finds by those names:
+
+* ``BENCHMARK.json``: the cell's configuration, traffic and chips, and
+  the metrics that apply to it;
+* the configuration's ``file`` (``configs/<name>.json``): the model as
+  it is run, in the program's ``ModelConfig`` fields, and the name of
+  its plain reference under ``reference/``;
+* ``traffic/<traffic>.json``: the requests (``harness/traffic.py``) and
+  the deployment that serves them (engine settings, adapter pool and
+  bank);
+* ``checks/<cell>.json``: the numbers that decide ``correct`` and their
+  limits;
+* ``metrics/<metric>.py``: one reader per metric.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+from dataclasses import dataclass
+from pathlib import Path
+from types import ModuleType
+from typing import Dict, List
+
+ROOT = Path(__file__).resolve().parents[2]
+BENCH_DIR = ROOT / "perfbench"
+
+
+@dataclass
+class Cell:
+    root: Path
+    name: str
+    chips: int
+    config: Dict
+    traffic: Dict
+    checks: Dict
+    end_to_end: List[Dict]
+    per_layer: List[Dict]
+
+
+def _load_json(path: Path) -> Dict:
+    return json.loads(path.read_text())
+
+
+def _applies(metric: Dict, cell: str) -> bool:
+    return "workloads" not in metric or cell in metric["workloads"]
+
+
+def load_cell(name: str, root: Path = ROOT) -> Cell:
+    bench = _load_json(root / "BENCHMARK.json")
+    cells = {w["name"]: w for w in bench["workloads"]}
+    if name not in cells:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json "
+                       f"(has {sorted(cells)})")
+    w = cells[name]
+    cfg_entry = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    return Cell(
+        root=root, name=name, chips=w["chips"],
+        config=_load_json(root / cfg_entry["file"]),
+        traffic=_load_json(root / "perfbench" / "traffic"
+                           / f"{w['traffic']}.json"),
+        checks=_load_json(root / "perfbench" / "checks" / f"{name}.json"),
+        end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
+        per_layer=[m for m in bench["per_layer"] if _applies(m, name)])
+
+
+def load_module(path: Path) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(
+        "perfbench_" + path.stem.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def reader(metric: str, root: Path = ROOT) -> ModuleType:
+    return load_module(root / "perfbench" / "metrics" / f"{metric}.py")
+
+
+def reference(cfg: Dict, root: Path = ROOT) -> ModuleType:
+    return load_module(root / "perfbench" / "reference"
+                       / f"{cfg['reference']}.py")
+
+
+def model_config(cfg: Dict, traffic: Dict):
+    """The program's ``ModelConfig`` for this configuration, with the
+    deployment's adapter pool and tenant count."""
+    from repro_torch.configs.base import (AttentionConfig, LoRAConfig,
+                                          ModelConfig)
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    kw = {k: v for k, v in cfg.items() if k in fields
+          and k not in ("attn", "lora")}
+    attn = dict(cfg["attn"])
+    attn["layer_pattern"] = tuple(attn["layer_pattern"])
+    lora = dict(cfg["lora"])
+    lora["target_modules"] = tuple(lora["target_modules"])
+    lora["max_resident"] = traffic["pool"]
+    lora["n_adapters"] = traffic["requests"]["tenants"]
+    return ModelConfig(**kw, citation=cfg["source"],
+                       attn=AttentionConfig(**attn), lora=LoRAConfig(**lora))
+
+
+def engine_config(traffic: Dict, seed: int):
+    from repro_torch.serving.engine import EngineConfig
+    kw = dict(traffic["engine"])
+    kw["prompt_buckets"] = tuple(kw["prompt_buckets"])
+    return EngineConfig(**kw, seed=seed % (2 ** 31))
