@@ -19,6 +19,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import spans
+
 
 class LoRAMode(NamedTuple):
     """How to apply LoRA inside a linear layer.
@@ -86,17 +88,26 @@ def lora_delta_batched(x: torch.Tensor, a_stack: torch.Tensor,
     backend='einsum' gathers only the per-request adapters ([B, r, d_in]);
     backend='sgmv' flattens the batch to [T, d_in] with per-token slots
     and runs the grouped kernels (``repro_torch.kernels.ops.sgmv``).
+    With wall spans on, the whole delta is a ``lora`` span.
     """
+    sp = spans.wall
+    if sp is not None:
+        sp.open("lora")
     if backend == "sgmv":
-        return _lora_delta_sgmv(x, a_stack, b_stack, adapter_ids, scale)
-    ids = adapter_ids.long()
-    a_sel = a_stack[ids].to(x.dtype)  # [B, r, d_in]
-    b_sel = b_stack[ids].to(x.dtype)  # [B, d_out, r]
-    if x.dim() == 3:
-        shrink = torch.einsum("bsd,brd->bsr", x, a_sel)
-        return scale * torch.einsum("bsr,bor->bso", shrink, b_sel)
-    shrink = torch.einsum("bd,brd->br", x, a_sel)
-    return scale * torch.einsum("br,bor->bo", shrink, b_sel)
+        out = _lora_delta_sgmv(x, a_stack, b_stack, adapter_ids, scale)
+    else:
+        ids = adapter_ids.long()
+        a_sel = a_stack[ids].to(x.dtype)  # [B, r, d_in]
+        b_sel = b_stack[ids].to(x.dtype)  # [B, d_out, r]
+        if x.dim() == 3:
+            shrink = torch.einsum("bsd,brd->bsr", x, a_sel)
+            out = scale * torch.einsum("bsr,bor->bso", shrink, b_sel)
+        else:
+            shrink = torch.einsum("bd,brd->br", x, a_sel)
+            out = scale * torch.einsum("br,bor->bo", shrink, b_sel)
+    if sp is not None:
+        sp.close()
+    return out
 
 
 def _lora_delta_sgmv(x: torch.Tensor, a_stack: torch.Tensor,

@@ -19,15 +19,27 @@ when its ``attn_kernel`` route is on.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import spans
+from repro_torch.kernels import decode_attention as _decode_attention_mod
+from repro_torch.kernels import flash_prefill as _flash_prefill_mod
+from repro_torch.kernels import paged_gather as _paged_gather_mod
 from repro_torch.kernels import ref
+from repro_torch.kernels import sgmv as _sgmv_mod
 from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_prefill import flash_prefill as _flash_prefill
 from repro_torch.kernels.paged_gather import paged_gather_pages
 from repro_torch.kernels.sgmv import DEFAULT_BLK_T, sgmv_expand, sgmv_shrink
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launches so far, by kernel name (the
+    wrappers' ``launches`` counters, read on the host)."""
+    return {**_sgmv_mod.launches, **_flash_prefill_mod.launches,
+            **_decode_attention_mod.launches, **_paged_gather_mod.launches}
 
 
 def auto_blk_t(t: int, n_slots: int, requested: int = DEFAULT_BLK_T) -> int:
@@ -99,21 +111,39 @@ def sgmv(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
     reference casts the whole pool first: the same numbers, without
     re-materialising the pool on every call). blk_t=None picks the block
     size from (T, R) via ``auto_blk_t``. No step waits on the device.
+    With wall spans on, its four phases are spans: ``lora.plan``,
+    ``lora.gather``, ``lora.kernels`` and ``lora.scatter`` (the scatter,
+    the scale and the cast).
     """
     t, d_in = x.shape
     if blk_t is None:
         blk_t = auto_blk_t(t, n_slots)
+    sp = spans.wall
+    if sp is not None:
+        sp.open("lora.plan")
     plan = plan_grouping(token_slots, n_slots, blk_t)
     pos = plan.padded_pos.long()
+    if sp is not None:
+        sp.close()
+        sp.open("lora.gather")
     xbuf = x.new_zeros((plan.n_padded, d_in))
     xbuf[pos] = x[plan.perm]                        # Fig. 6 gather
+    if sp is not None:
+        sp.close()
+        sp.open("lora.kernels")
     s = sgmv_shrink(xbuf, a_stack, plan.block_slots, blk_t=blk_t,
                     n_used=plan.n_used)
     y = sgmv_expand(s, b_stack, plan.block_slots, blk_t=blk_t,
                     compute_dtype=x.dtype, n_used=plan.n_used)
+    if sp is not None:
+        sp.close()
+        sp.open("lora.scatter")
     out = torch.empty((t, b_stack.shape[1]), dtype=y.dtype, device=y.device)
     out[plan.perm] = y[pos]                         # Fig. 6 scatter
-    return (scale * out).to(x.dtype)
+    out = (scale * out).to(x.dtype)
+    if sp is not None:
+        sp.close()
+    return out
 
 
 def paged_gather(arena: torch.Tensor, tables: torch.Tensor, *,

@@ -23,8 +23,14 @@ values, ``--kv-backend paged``, ``--prefix-cache`` (which implies the
 paged backend) and ``--prefill-chunk`` serve as there, and the summary
 row carries their ``kv=`` and ``prefix=`` digests. ``--trace PATH``
 writes the engine trace (Perfetto JSON with the raw ``edgelora``
-section that ``tools/trace_report.py`` reads); a llamacpp adapter set
-over ``--memory-budget`` prints ``OOM: ...`` and exits 2.
+section that ``tools/trace_report.py`` reads) with the wall spans on:
+the engine's loop, steps, model layers and LoRA wrapper on the host's
+clock, a second process in the same file (docs/observability-torch.md).
+The spans' cost lands inside the steps' timed intervals, so a traced
+run's steps are charged a little longer and its virtual schedule is not
+an untraced run's: compare token streams across the two, not latencies.
+A llamacpp adapter set over ``--memory-budget`` prints ``OOM: ...`` and
+exits 2.
 """
 from __future__ import annotations
 
@@ -132,7 +138,7 @@ def main(argv=None) -> int:
         disk_bandwidth=args.disk_bandwidth,
         prefill_batching=args.prefill_batching,
         router_batching=args.router_batching, seed=args.seed)
-    tracer = EngineTracer() if args.trace else None
+    tracer = EngineTracer(wall_spans=True) if args.trace else None
     try:
         engine = EdgeLoRAEngine(cfg, ecfg, tracer=tracer,
                                 device=args.device)
@@ -143,8 +149,10 @@ def main(argv=None) -> int:
     if tracer is not None:
         tracer.export(args.trace)
         print(f"# trace written to {args.trace} "
-              f"({len(tracer.events)} events; open in ui.perfetto.dev "
-              f"or inspect with tools/trace_report.py)", file=sys.stderr)
+              f"({len(tracer.events)} events, "
+              f"{len(tracer.wall_spans.spans)} wall spans; open in "
+              f"ui.perfetto.dev or inspect with tools/trace_report.py)",
+              file=sys.stderr)
     print(f"# lora_backend={engine.lora_backend} "
           f"kv_backend={engine.kv_backend} device={engine.device} "
           f"attn_kernel={engine.attn_kernel}", file=sys.stderr)

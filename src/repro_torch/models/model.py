@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import spans
 from repro_torch.core.lora import LoRAMode
 from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
@@ -195,13 +196,19 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
 
     def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+        sp = spans.wall
+        if sp is not None:
+            sp.open("embed")
         x = params["embed"][tokens.long()]
         if self.cfg.scale_embeddings:
             # sqrt(d) rounded to the param dtype first, as the reference
             # multiplies by it (59.75 in bf16 at d 3584); a Python scalar,
             # so no tensor is made on the device (a host sync)
             x = x * _round_to(math.sqrt(self.cfg.d_model), x.dtype)
-        return logical_constraint(x, "batch", *(None,) * (x.ndim - 1))
+        x = logical_constraint(x, "batch", *(None,) * (x.ndim - 1))
+        if sp is not None:
+            sp.close()
+        return x
 
     def logits(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
         """The head: RMSNorm ``final_norm``, then the unembedding. An
@@ -209,10 +216,16 @@ class Model(nn.Module):
         ``ln_post``) and are normed a second time here, as in the
         reference."""
         cfg = self.cfg
+        sp = spans.wall
+        if sp is not None:
+            sp.open("head")
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-        return unembed(h, head, tied=cfg.tie_embeddings,
-                       softcap=cfg.final_logit_softcap)
+        out = unembed(h, head, tied=cfg.tie_embeddings,
+                      softcap=cfg.final_logit_softcap)
+        if sp is not None:
+            sp.close()
+        return out
 
     # ------------------------------------------------------------------
     # full-sequence forward (training / scoring)

@@ -29,6 +29,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import spans
 from repro_torch.core.lora import LoRAMode, init_lora_pair
 from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models import attention as attn_lib
@@ -212,11 +213,22 @@ def _attn_block_full(slot_p: Dict, lora_p: Optional[Dict], x: torch.Tensor,
                      prefix_kv: Optional[Dict] = None,
                      prefix_positions: Optional[torch.Tensor] = None,
                      attn_kernel: bool = False):
+    wall = spans.wall
+    if wall is not None:
+        wall.open("attn")
     h = rmsnorm(slot_p["ln1"], x, cfg.norm_eps)
+    if wall is not None:
+        wall.open("qkv")
     q, k, v = attn_lib.project_qkv(slot_p["attn"], h, cfg, positions,
                                    lora_p, lora_mode)
+    if wall is not None:
+        wall.close()
     if cache_slot is not None:
+        if wall is not None:
+            wall.open("cache_write")
         attn_lib.cache_fill(cache_slot, k, v, positions)
+        if wall is not None:
+            wall.close()
     k_all, v_all, kpos = k, v, positions
     if prefix_kv is not None:
         # suffix prefill over a cached prefix: keys/values are the
@@ -226,15 +238,21 @@ def _attn_block_full(slot_p: Dict, lora_p: Optional[Dict], x: torch.Tensor,
         k_all = torch.cat([prefix_kv["k"].to(k.dtype), k], dim=1)
         v_all = torch.cat([prefix_kv["v"].to(v.dtype), v], dim=1)
         kpos = torch.cat([prefix_positions.to(positions.dtype), positions])
+    if wall is not None:
+        wall.open("attention")
     o = attn_lib.blockwise_attention(
         q, k_all, v_all, positions, kpos, kind=kind, cfg=cfg,
         block_q=opts.get("block_q", 512), block_kv=opts.get("block_kv", 1024),
         use_kernel=attn_kernel)
+    if wall is not None:
+        wall.close()
     o = o.reshape(*x.shape[:-1], cfg.q_size)
     o = linear({"w": slot_p["attn"]["wo"]}, o, (lora_p or {}).get("o"),
                lora_mode)
     if cfg.post_norm:
         o = rmsnorm(slot_p["post1"], o, cfg.norm_eps)
+    if wall is not None:
+        wall.close()
     return o
 
 
@@ -250,10 +268,15 @@ def _ffn_block(slot_p: Dict, lora_p: Optional[Dict], h: torch.Tensor,
 
 def _ffn_block_full(slot_p: Dict, lora_p: Optional[Dict], x: torch.Tensor,
                     cfg: ModelConfig, lora_mode: LoRAMode):
+    wall = spans.wall
+    if wall is not None:
+        wall.open("mlp")
     h = rmsnorm(slot_p["ln2"], x, cfg.norm_eps)
     y, aux = _ffn_block(slot_p, lora_p, h, cfg, lora_mode)
     if cfg.post_norm:
         y = rmsnorm(slot_p["post2"], y, cfg.norm_eps)
+    if wall is not None:
+        wall.close()
     return y, aux
 
 
@@ -364,6 +387,9 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         for p in range(period):
             kind = slot_kind(cfg, p)
             sp, lp = gp[f"slot{p}"], gl.get(f"slot{p}")
+            wall = spans.wall
+            if wall is not None:
+                wall.open("layer", {"i": gi * period + p})
             if kind == "ssm":
                 h = _ssm_slot_full(sp, lp, h, cfg, lora_mode,
                                    gc.get(f"slot{p}"), seq_mask, lengths)
@@ -379,6 +405,8 @@ def forward_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                     lb = lb + slot_aux["load_balance"]
                     zl = zl + slot_aux["router_z"]
             h = logical_constraint(h, "batch", None, None)
+            if wall is not None:
+                wall.close()
         if shared_params is not None:
             h = _shared_attn_block(shared_params, shared_lora, h, cfg,
                                    positions, lora_mode, opts,
@@ -440,16 +468,31 @@ def _attn_decode(sp: Dict, lp: Optional[Dict], h: torch.Tensor,
     place before the attention reads it (both on the current stream);
     pos: [B] per-slot positions."""
     b = h.shape[0]
+    wall = spans.wall
+    if wall is not None:
+        wall.open("attn")
     x = rmsnorm(sp["ln1"], h, cfg.norm_eps)[:, None, :]            # [B, 1, d]
+    if wall is not None:
+        wall.open("qkv")
     q, k, v = attn_lib.project_qkv(sp["attn"], x, cfg, pos[:, None], lp,
                                    lora_mode)
+    if wall is not None:
+        wall.close()
+        wall.open("cache_write")
     attn_lib.cache_update(cache_p, k, v, pos)
+    if wall is not None:
+        wall.close()
+        wall.open("attention")
     o = attn_lib.decode_attention(q[:, 0], cache_p, pos, kind=kind, cfg=cfg,
                                   use_kernel=attn_kernel)
+    if wall is not None:
+        wall.close()
     o = linear({"w": sp["attn"]["wo"]}, o.reshape(b, 1, cfg.q_size),
                (lp or {}).get("o"), lora_mode)[:, 0]
     if cfg.post_norm:
         o = rmsnorm(sp["post1"], o, cfg.norm_eps)
+    if wall is not None:
+        wall.close()
     return o
 
 
@@ -475,6 +518,9 @@ def decode_stack(params: Dict, x: torch.Tensor, cache: Dict,
         for p in range(period):
             kind = slot_kind(cfg, p)
             sp, lp = gp[f"slot{p}"], gl.get(f"slot{p}")
+            wall = spans.wall
+            if wall is not None:
+                wall.open("layer", {"i": gi * period + p})
             if kind == "ssm":
                 cp = gc[f"slot{p}"]
                 hn = rmsnorm(sp["ln1"], h, cfg.norm_eps)
@@ -487,14 +533,22 @@ def decode_stack(params: Dict, x: torch.Tensor, cache: Dict,
                     h = h + mlp(sp["mlp"], rmsnorm(sp["ln2"], h, cfg.norm_eps),
                                 act=cfg.act, glu=cfg.glu, lora=lp,
                                 lora_mode=lora_mode)
+                if wall is not None:
+                    wall.close()
                 continue
             h = h + _attn_decode(sp, lp, h, gc[f"slot{p}"], cfg, kind, pos,
                                  lora_mode, attn_kernel)
+            if wall is not None:
+                wall.open("mlp")
             hn = rmsnorm(sp["ln2"], h, cfg.norm_eps)[:, None, :]
             y = _ffn_block(sp, lp, hn, cfg, lora_mode)[0][:, 0]
             if cfg.post_norm:
                 y = rmsnorm(sp["post2"], y, cfg.norm_eps)
+            if wall is not None:
+                wall.close()
             h = h + y
+            if wall is not None:
+                wall.close()
         if shared_params is not None:
             h = h + _attn_decode(shared_params, shared_lora, h,
                                  gc["shared"], cfg, "global", pos, lora_mode,

@@ -59,7 +59,10 @@ Tracing is opt-in (``tracer=``, ``serving/trace.py``): every site guards
 on ``tracer is not None``, so an untraced engine runs exactly as if the
 hooks were absent, and a traced one adds no device sync and no host read
 of device data. Events, names and virtual timestamps are the
-reference's.
+reference's. A tracer with wall spans on (``EngineTracer(wall_spans=
+True)``) also gets the loop's, the steps' and the model's wall-clock
+spans: ``serve`` publishes its record as ``repro_torch.core.spans.wall``
+for the serve's length, and every span site guards on that being set.
 """
 from __future__ import annotations
 
@@ -74,13 +77,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import spans
 from repro_torch.core.adapter_cache import (AdapterMemoryManager,
                                             PoolExhaustedError)
 from repro_torch.core.lora import LoRAMode, resolve_lora_backend
 from repro_torch.core.router import OracleRouter, select_adapter
 from repro_torch.core.slots import Request, Slot, SlotManager, SlotState
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.ops import paged_gather
+from repro_torch.kernels.ops import launch_counts, paged_gather
 from repro_torch.models import build_model
 from repro_torch.models.model import require_token_batches
 from repro_torch.serving import kvpool as kvlib
@@ -248,18 +252,27 @@ class EdgeLoRAEngine:
 
     def _load_adapter(self, adapter_id: int, slot: int) -> None:
         """Device-side pool write, in place (``pool[:, slot].copy_``). The
-        transfer's cost is booked by the manager, not here."""
+        transfer's cost is booked by the manager, not here. With wall
+        spans on it is an ``adapter.load`` span, counted with its
+        bytes."""
+        sp = spans.wall
+        if sp is not None:
+            sp.open("adapter.load", {"adapter": adapter_id})
         adapter = self.adapter_source(adapter_id)
 
-        def write(pool: Any, item: Any, ax: int) -> None:
+        def write(pool: Any, item: Any, ax: int) -> int:
+            """Copy ``item`` into the pool; returns the bytes copied."""
             if isinstance(pool, dict):
-                for k, sub in pool.items():
-                    write(sub, item[k], ax)
-            else:
-                pool.select(ax, slot).copy_(item)
+                return sum(write(sub, item[k], ax) for k, sub in pool.items())
+            pool.select(ax, slot).copy_(item)
+            return item.nbytes
 
-        for key, sub in self.lora_pool.items():
-            write(sub, adapter[key], self._LEAD_AXIS[key])
+        nbytes = sum(write(sub, adapter[key], self._LEAD_AXIS[key])
+                     for key, sub in self.lora_pool.items())
+        if sp is not None:
+            sp.close({"bytes": nbytes})
+            sp.count("adapter_loads")
+            sp.count("adapter_load_bytes", nbytes)
 
     # ------------------------------------------------------------------
     # compute steps
@@ -551,30 +564,51 @@ class EdgeLoRAEngine:
         charge lands on the trace as a compute span (a key's first call
         also as a compile instant: the warm-up); ``requests`` names the
         real group members the span served (padding replicas
-        excluded)."""
+        excluded). With wall spans on, the call is a ``step`` span whose
+        children are each ``step.call`` and ``step.sync``; it ends with
+        the raw wall seconds the EWMA takes in and the kernel launches
+        made during the step."""
         warm = key not in self._durations
+        sp = spans.wall
+        if sp is not None:
+            sp.open("step", {"kind": key[0], "key": list(key),
+                             "requests": list(requests or ()),
+                             "warm": warm})
+            launches0 = launch_counts()
+        call = fn if sp is None else functools.partial(sp.call, "step.call",
+                                                       fn)
+        sync = (self._sync if sp is None
+                else functools.partial(sp.call, "step.sync", self._sync))
         if warm:
             # the warm-up's in-place attention writes are repeated with
             # the same values; the recurrent state (SSM conv rings and
             # states) it advances is put back before the charged call
             state = self._recurrent_leaves(args)
             saved = [t.clone() for t in state]
-            out = fn(*args)  # warm-up (uncharged)
+            out = call(*args)  # warm-up (uncharged)
             for t, v in zip(state, saved):
                 t.copy_(v)
-            self._sync()
+            sync()
             t0 = self._timer.perf_counter()  # el: allow[clock] -- _timed measures
-            out = fn(*args)
-            self._sync()
-            self._durations[key] = self._timer.perf_counter() - t0  # el: allow[clock] -- _timed
+            out = call(*args)
+            sync()
+            raw = self._timer.perf_counter() - t0  # el: allow[clock] -- _timed
+            self._durations[key] = raw
         else:
             t0 = self._timer.perf_counter()  # el: allow[clock] -- _timed measures
-            out = fn(*args)
-            self._sync()
-            self._durations[key] = 0.5 * self._durations[key] + 0.5 * (
-                self._timer.perf_counter() - t0)  # el: allow[clock] -- _timed
+            out = call(*args)
+            sync()
+            raw = self._timer.perf_counter() - t0  # el: allow[clock] -- _timed
+            self._durations[key] = 0.5 * self._durations[key] + 0.5 * raw
         dt = self._durations[key] * self.ecfg.time_scale
         self.busy_time += dt
+        if sp is not None:
+            # closed before the tracer's hooks, which may end the serve
+            after = launch_counts()
+            sp.close({"wall_s": raw,
+                      "launches": {k: n - launches0[k]
+                                   for k, n in after.items()
+                                   if n != launches0[k]}})
         tr = self.tracer
         if tr is not None and now is not None:
             if warm:
@@ -619,11 +653,13 @@ class EdgeLoRAEngine:
         self.load_stall_seconds = 0.0
         self._serve_loads0 = self.manager.stats.loads
         self.manager.reset_channel()
-        # tracing: open the run and wire the channel and arena hooks for
-        # this serve only; the finally below unwires them even when the
-        # loop raises
+        # tracing: open the run and wire the channel and arena hooks (and
+        # publish the wall spans) for this serve only; the finally below
+        # unwires them even when the loop raises
         tr = self.tracer
+        sp = tr.wall_spans if tr is not None else None
         try:
+            spans.wall = sp
             if tr is not None:
                 tr.begin(now, ecfg.n_slots, meta={
                     "policy": ecfg.policy, "kv_backend": self.kv_backend,
@@ -661,10 +697,14 @@ class EdgeLoRAEngine:
             while len(completed) + len(rejected) < len(queue):
                 if max_sim_time is not None and now > max_sim_time:
                     break
+                if sp is not None:
+                    sp.open("iteration")
                 progressed = False
                 busy0 = self.busy_time
 
                 # ---- admission ---------------------------------------
+                if sp is not None:
+                    sp.open("admit")
                 idle = self.slots.idle()
                 if ecfg.policy == "dlora" and idle and arrivals_ready():
                     want_mode, want_adapter = dlora_desired()
@@ -758,8 +798,12 @@ class EdgeLoRAEngine:
                 self.peak_active_slots = max(
                     self.peak_active_slots,
                     sum(s.state != SlotState.IDLE for s in self.slots.slots))
+                if sp is not None:
+                    sp.close()
 
                 # ---- adapter selection (Algorithm 1) -----------------
+                if sp is not None:
+                    sp.open("select")
                 if (ecfg.router_batching
                         and ecfg.policy not in ("dlora", "llamacpp",
                                                 "edgelora_no_aas")
@@ -873,6 +917,8 @@ class EdgeLoRAEngine:
                         # and swap shared pages into the reserved table
                         self._attach_prefix(slot)
                     progressed = True
+                if sp is not None:
+                    sp.close()
 
                 # ---- async swap-in: transfers that have landed --------
                 if ecfg.async_swap:
@@ -982,7 +1028,11 @@ class EdgeLoRAEngine:
                             self._to_device(sids), now=now, requests=rids)
                     now += dt
                     self.decode_steps += 1
+                    if sp is not None:
+                        sp.open("readback")
                     next_np = next_toks.cpu().numpy()  # el: allow[host-sync] -- output stream
+                    if sp is not None:
+                        sp.close()
                     for slot in gen:
                         req = slot.request
                         slot.last_token = int(next_np[slot.index])
@@ -1021,6 +1071,8 @@ class EdgeLoRAEngine:
                         decode_batch=len(gen),
                         resident_adapters=self.manager.n_resident,
                         loading_adapters=len(self.manager.loading))
+                if sp is not None:
+                    sp.close()  # iteration
 
                 # ---- idle / load-blocked: jump to the earliest event --
                 if not progressed:
@@ -1059,6 +1111,9 @@ class EdgeLoRAEngine:
             self.manager.on_event = None
             if self.paged:
                 self.kvpool.on_event = None
+            spans.wall = None
+            if sp is not None:
+                sp.close_all()
         duration = max(now, 1e-9)
         kv_stats = None
         if self.paged:
@@ -1254,7 +1309,12 @@ class EdgeLoRAEngine:
         self.prefill_steps += 1
         self.prefill_batch_hist[len(group)] = \
             self.prefill_batch_hist.get(len(group), 0) + 1
+        sp = spans.wall
+        if sp is not None:
+            sp.open("readback")
         first_np = first.cpu().numpy()  # el: allow[host-sync] -- output stream
+        if sp is not None:
+            sp.close()
         for i, slot in enumerate(group):
             req = slot.request
             slot.pos = req.prompt_len
@@ -1359,7 +1419,12 @@ class EdgeLoRAEngine:
         self.prefill_steps += 1
         self.prefill_batch_hist[len(group)] = \
             self.prefill_batch_hist.get(len(group), 0) + 1
+        sp = spans.wall
+        if sp is not None:
+            sp.open("readback")
         first_np = first.cpu().numpy()  # el: allow[host-sync] -- output stream
+        if sp is not None:
+            sp.close()
         for i, slot in enumerate(group):
             req = slot.request
             if req.prompt_len <= end:

@@ -43,11 +43,29 @@ bit-identical to an untraced engine (regression-tested). A traced run
 also never changes behavior — instrumentation is read-only — so
 enabling it only adds the recording overhead.
 
+**Wall spans** (``EngineTracer(wall_spans=True)``, off by default) are
+a second record beside the virtual one, on the host's
+``time.perf_counter`` (:class:`WallSpans`): the engine's loop
+(``iteration``, ``admit``, ``select``, ``adapter.load``, ``readback``),
+each ``_timed`` step (``step`` with its ``step.call`` and ``step.sync``;
+the raw wall seconds the EWMA takes in, the kernel wrappers' launches
+during the step), the model (``embed``, ``layer`` > ``attn`` > ``qkv`` /
+``cache_write`` / ``attention``, ``mlp``, ``head``), the LoRA wrapper
+(``lora`` > ``lora.plan`` / ``lora.gather`` / ``lora.kernels`` /
+``lora.scatter``), and each slot-state visit stamped with its request
+id. The model and kernel code reach the record through
+``repro_torch.core.spans.wall``, which the engine sets for one serve.
+The clock is read here and nowhere else, never through the engine's
+``timer``: the virtual events, the metrics and the breakdowns are the
+same with the record on or off.
+
 ``EngineTracer.export(path)`` writes a Chrome-trace/Perfetto JSON
 (``traceEvents`` with slots, channel, arena, scheduler, and compute as
 tracks, metrics series as counter tracks) plus an ``edgelora`` section
 carrying the raw events, metric series, per-request breakdowns, and
-the watchdog report — ``tools/trace_report.py`` analyzes that section,
+the watchdog report (and, with wall spans on, a ``wall`` key and a
+second process on the wall clock) — ``tools/trace_report.py`` analyzes
+that section,
 and ``benchmarks/schema.py``'s ``validate_trace_file`` schema-checks
 the whole artifact in CI.
 """
@@ -55,9 +73,10 @@ from __future__ import annotations
 
 import json
 import math
+import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
-from repro_torch.serving.metrics_registry import MetricsRegistry
+from repro_torch.serving.metrics_registry import Counter, MetricsRegistry
 
 # slot states that are recorded as spans (IDLE is the absence of a span)
 _ACTIVE_STATES = ("selecting", "loading", "prefill", "generate")
@@ -110,6 +129,119 @@ class _RequestAcct:
         return out
 
 
+def _wall_clock() -> float:
+    """The wall spans' clock: ``time.perf_counter``, the clock the
+    benchmark's stamps and its device-trace offset use too."""
+    return time.perf_counter()  # el: allow[clock] -- the wall spans' clock
+
+
+# a wall span: (id, name, start, end, parent id or -1, args or None);
+# times in perf_counter seconds
+WALL_FIELDS = ("id", "name", "t0", "t1", "parent", "args")
+
+
+class WallSpans:
+    """Spans on the host's wall clock, one serve's worth.
+
+    ``open``/``close`` keep a stack: a span's parent is the span open
+    when it opened, and ``close`` ends the innermost open span. Closed
+    spans are kept in ``spans`` as tuples (``WALL_FIELDS``), in the
+    order they closed. ``state`` stamps slot-state visits
+    (``slots``, the same fields, parent -1, args ``slot`` and
+    ``request``). ``counters`` holds counts the engine keeps beside the
+    spans (adapter loads and their bytes)."""
+
+    __slots__ = ("origin", "spans", "slots", "counters", "_open",
+                 "_state", "_next")
+
+    def __init__(self) -> None:
+        self.origin = _wall_clock()
+        self.spans: List[Tuple] = []
+        self.slots: List[Tuple] = []
+        self.counters: Dict[str, Counter] = {}
+        self._open: List[Tuple] = []
+        self._state: Dict[int, Tuple[float, Optional[int]]] = {}
+        self._next = 0
+
+    def open(self, name: str, args: Optional[Dict] = None) -> None:
+        stack = self._open
+        stack.append((self._next, name, _wall_clock(),
+                      stack[-1][0] if stack else -1, args))
+        self._next += 1
+
+    def close(self, args: Optional[Dict] = None) -> None:
+        """End the innermost open span; ``args`` are merged into its
+        own."""
+        t1 = _wall_clock()
+        sid, name, t0, parent, own = self._open.pop()
+        if args:
+            own = {**own, **args} if own else args
+        self.spans.append((sid, name, t0, t1, parent, own))
+
+    def call(self, name: str, fn: Any, *args: Any) -> Any:
+        """``fn(*args)`` inside a span ``name``."""
+        self.open(name)
+        try:
+            return fn(*args)
+        finally:
+            self.close()
+
+    def close_all(self) -> None:
+        """End every open span (a serve that raised), marked truncated."""
+        while self._open:
+            self.close({"truncated": True})
+
+    def count(self, name: str, n: float = 1) -> None:
+        c = self.counters.get(name)
+        if c is None:
+            c = self.counters[name] = Counter(name)
+        c.inc(n)
+
+    def state(self, slot: int, old: str, new: str,
+              rid: Optional[int]) -> None:
+        """Slot ``slot`` leaves ``old`` for ``new`` now: ends the visit
+        of ``old`` (unless idle) and starts one of ``new``."""
+        t = _wall_clock()
+        if old != "idle":
+            t0, r = self._state.pop(slot)
+            self.slots.append((self._next, old, t0, t, -1,
+                               {"slot": slot, "request": r}))
+            self._next += 1
+        if new != "idle":
+            self._state[slot] = (t, rid)
+
+    def to_json(self) -> Dict:
+        return {"clock": "perf_counter", "origin": self.origin,
+                "fields": list(WALL_FIELDS),
+                "spans": [list(s) for s in self.spans],
+                "slots": [list(s) for s in self.slots],
+                "counters": {k: c.value for k, c in self.counters.items()}}
+
+    def chrome_events(self, pid: int = 1) -> List[Dict]:
+        """A second Perfetto process: the host's spans on one thread
+        (nested by time), each slot's state visits on its own; times in
+        wall microseconds from ``origin``."""
+        out: List[Dict] = [{"ph": "M", "pid": pid, "tid": 0,
+                            "name": "process_name",
+                            "args": {"name": "edgelora-wall"}},
+                           {"ph": "M", "pid": pid, "tid": 0,
+                            "name": "thread_name", "args": {"name": "host"}}]
+        for i in sorted({args["slot"] for *_, args in self.slots}):
+            out.append({"ph": "M", "pid": pid, "tid": 1 + i,
+                        "name": "thread_name", "args": {"name": f"slot{i}"}})
+
+        def event(tid: int, span: Tuple) -> Dict:
+            sid, name, t0, t1, parent, args = span
+            return {"ph": "X", "pid": pid, "tid": tid, "name": name,
+                    "cat": "wall", "ts": (t0 - self.origin) * 1e6,
+                    "dur": (t1 - t0) * 1e6,
+                    "args": {"id": sid, "parent": parent, **(args or {})}}
+
+        out += [event(0, s) for s in self.spans]
+        out += [event(1 + s[5]["slot"], s) for s in self.slots]
+        return out
+
+
 class EngineTracer:
     """Structured event/span recorder for one ``serve()`` run.
 
@@ -117,10 +249,13 @@ class EngineTracer:
     (``begin`` raises on reuse). ``strict_watchdog=True`` (default)
     makes the engine raise :class:`JitRecompileError` at the end of the
     run when the jit-cache report finds shape violations; ``False``
-    records the report without failing the run.
+    records the report without failing the run. ``wall_spans=True``
+    also keeps the wall-clock record (the ``wall_spans`` attribute, a
+    :class:`WallSpans`); off, it is None and nothing of it is built.
     """
 
-    def __init__(self, strict_watchdog: bool = True) -> None:
+    def __init__(self, strict_watchdog: bool = True,
+                 wall_spans: bool = False) -> None:
         self.events: List[Dict] = []
         self.now = 0.0
         self.metrics = MetricsRegistry()
@@ -131,6 +266,8 @@ class EngineTracer:
         self._acct: Dict[int, _RequestAcct] = {}
         self._began = False
         self._finished = False
+        self.wall_spans: Optional[WallSpans] = (WallSpans() if wall_spans
+                                                else None)
 
     # -- lifecycle --------------------------------------------------------
 
@@ -222,6 +359,8 @@ class EngineTracer:
                     acct.segments[seg] += v
                 acct.pending = {s: 0.0 for s in _STATE_SEGMENT.values()}
                 acct.finish = t
+        if self.wall_spans is not None:
+            self.wall_spans.state(slot, old, new, rid)
 
     def compute(self, t: float, dt: float, key: Tuple,
                 requests: Optional[List[int]] = None) -> None:
@@ -352,26 +491,32 @@ class EngineTracer:
             for t, v in series:
                 out.append({"ph": "C", "pid": 0, "tid": 0, "name": name,
                             "ts": t * 1e6, "args": {"value": v}})
+        if self.wall_spans is not None:
+            out.extend(self.wall_spans.chrome_events())
         out.sort(key=lambda e: (e.get("ts", -1.0), e["ph"] != "M"))
         return out
 
     def to_json(self) -> Dict:
         """The full export payload: ``traceEvents`` (Perfetto opens it
         directly) plus the ``edgelora`` raw section that
-        ``tools/trace_report.py`` and the schema check consume."""
+        ``tools/trace_report.py`` and the schema check consume; with
+        wall spans on, the section's ``wall`` key holds them."""
+        section = {
+            "version": 1,
+            "meta": self.meta,
+            "duration": self.now,
+            "events": self.events,
+            "metrics": self.metrics.as_dict(),
+            "breakdowns": {str(rid): bd for rid, bd in
+                           self.request_breakdowns().items()},
+            "watchdog": self.watchdog_report,
+        }
+        if self.wall_spans is not None:
+            section["wall"] = self.wall_spans.to_json()
         return {
             "displayTimeUnit": "ms",
             "traceEvents": self.chrome_events(),
-            "edgelora": {
-                "version": 1,
-                "meta": self.meta,
-                "duration": self.now,
-                "events": self.events,
-                "metrics": self.metrics.as_dict(),
-                "breakdowns": {str(rid): bd for rid, bd in
-                               self.request_breakdowns().items()},
-                "watchdog": self.watchdog_report,
-            },
+            "edgelora": section,
         }
 
     def export(self, path: Any) -> None:
