@@ -15,11 +15,21 @@ The pool ``A_stack[R, r, d_in]`` / ``B_stack[R, d_out, r]`` holds
 """
 from __future__ import annotations
 
+from contextvars import ContextVar
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import spans
+
+# The plan memo (``LoRAMode.plans``) of the mode whose batched delta is
+# being computed, for ``_lora_delta_sgmv``. ``apply_lora`` sets it for
+# the length of one call and puts the old value back, so it never holds
+# a memo past the call. It travels beside the arguments because
+# ``lora_delta_batched`` keeps its call (x, A, B, ids, scale, backend):
+# the benchmark's planted faults replace it with a wrapper of that call.
+_step_plans: ContextVar[Optional[Dict[Any, Any]]] = ContextVar(
+    "lora_step_plans", default=None)
 
 
 class LoRAMode(NamedTuple):
@@ -30,12 +40,19 @@ class LoRAMode(NamedTuple):
     scale: alpha / rank.
     backend: 'einsum' (gather-einsum) or 'sgmv' (grouped CUDA kernels;
         their plain versions on CPU tensors) — batched mode only.
+    plans: None (every sgmv call plans its own grouping) or a dict owned
+        by this mode, which the sgmv backend fills, through
+        ``apply_lora``, with one grouping plan per token layout
+        (``_lora_delta_sgmv``) and every later call on that layout
+        reuses. A plan holds for these ``adapter_ids`` only: give each
+        mode a fresh ``{}`` and let the memo die with it.
     """
 
     kind: str = "none"
     adapter_ids: Optional[torch.Tensor] = None
     scale: float = 1.0
     backend: str = "einsum"
+    plans: Optional[Dict[Any, Any]] = None
 
 
 def resolve_lora_backend(requested: str = "auto",
@@ -87,8 +104,10 @@ def lora_delta_batched(x: torch.Tensor, a_stack: torch.Tensor,
 
     backend='einsum' gathers only the per-request adapters ([B, r, d_in]);
     backend='sgmv' flattens the batch to [T, d_in] with per-token slots
-    and runs the grouped kernels (``repro_torch.kernels.ops.sgmv``).
-    With wall spans on, the whole delta is a ``lora`` span.
+    and runs the grouped kernels (``repro_torch.kernels.ops.sgmv``),
+    reusing the grouping plans of the calling mode's memo (``apply_lora``
+    with ``LoRAMode.plans``). With wall spans on, the whole delta is a
+    ``lora`` span.
     """
     sp = spans.wall
     if sp is not None:
@@ -117,20 +136,40 @@ def _lora_delta_sgmv(x: torch.Tensor, a_stack: torch.Tensor,
     reshape back. The adapters are computed at x.dtype, like the einsum
     backend: the reference casts the pool to x.dtype before its kernels;
     here the kernels round each weight to x.dtype as they load it, which
-    gives the same numbers without casting the whole pool per call."""
+    gives the same numbers without casting the whole pool per call.
+
+    The plan depends only on the per-token slots, R and blk_t, so with a
+    memo (``_step_plans``) it is built once per token layout and slot
+    count, and every later projection of the step reuses it: with wall
+    spans on, counted as ``lora_plans`` (in ``ops.sgmv_plan``) and
+    ``lora_plan_reuses``. The layout is keyed by its token count T: the
+    slots' B rows fix S = T / B, and [B, 1, d] shares [B, d]'s plan. The
+    key holds the slot tensor's identity and the entry holds the tensor,
+    so a memo handed on with other ``adapter_ids`` misses instead of
+    routing tokens to another tenant's adapter."""
     from repro_torch.kernels import ops  # deferred, as in the reference
 
-    ids = adapter_ids.to(torch.int32)
-    if x.dim() == 3:
-        b, s, d_in = x.shape
-        token_slots = ids[:, None].expand(b, s).reshape(-1)
-        flat = x.reshape(b * s, d_in)
+    plans = _step_plans.get()
+    lead = x.shape[:-1]
+    t, n_slots = lead.numel(), a_stack.shape[0]
+    key = (id(adapter_ids), t, n_slots)
+    entry = plans.get(key) if plans is not None else None
+    if entry is None:
+        ids = adapter_ids.to(torch.int32)
+        token_slots = (ids[:, None].expand(lead).reshape(-1)
+                       if x.dim() == 3 else ids)
+        plan = ops.sgmv_plan(token_slots, n_slots, ops.auto_blk_t(t, n_slots))
+        if plans is not None:
+            plans[key] = (adapter_ids, token_slots, plan)
     else:
-        token_slots = ids
-        flat = x
-    delta = ops.sgmv(flat, a_stack, b_stack, token_slots, scale,
-                     n_slots=a_stack.shape[0], blk_t=None)
-    return delta.reshape(*x.shape[:-1], b_stack.shape[1])
+        _, token_slots, plan = entry
+        sp = spans.wall
+        if sp is not None:
+            sp.count("lora_plan_reuses")
+    delta = ops.sgmv(x.reshape(-1, x.shape[-1]), a_stack, b_stack,
+                     token_slots, scale, n_slots=n_slots, blk_t=plan.blk_t,
+                     plan=plan)
+    return delta.reshape(*lead, b_stack.shape[1])
 
 
 def apply_lora(x: torch.Tensor, pair: Optional[Dict[str, torch.Tensor]],
@@ -146,8 +185,13 @@ def apply_lora(x: torch.Tensor, pair: Optional[Dict[str, torch.Tensor]],
     if mode.kind == "single":
         return lora_delta_single(x, pair["A"], pair["B"], mode.scale)
     if mode.kind == "batched":
-        return lora_delta_batched(x, pair["A"], pair["B"], mode.adapter_ids,
-                                  mode.scale, backend=mode.backend)
+        token = _step_plans.set(mode.plans)
+        try:
+            return lora_delta_batched(x, pair["A"], pair["B"],
+                                      mode.adapter_ids, mode.scale,
+                                      backend=mode.backend)
+        finally:
+            _step_plans.reset(token)
     raise ValueError(f"unknown LoRA mode {mode.kind!r}")
 
 

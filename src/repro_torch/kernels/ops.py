@@ -8,7 +8,8 @@ a function of (T, R, blk_t) only, as in the reference: the padded token
 count is the static bound ``ceil(T/blk_t)·blk_t + R·blk_t``. The plan is
 computed on the device without a host sync, and the number of blocks that
 really hold tokens (``n_used``) stays there: the kernels read it and skip
-the weights of the zero padding blocks.
+the weights of the zero padding blocks. ``sgmv_plan`` builds the plan
+apart, so that calls on the same token slots can share one.
 
 ``paged_gather`` is the paged KV arena's page fetch: any-rank arena
 leaves through the ``paged_gather_pages`` kernel.
@@ -100,9 +101,35 @@ def plan_grouping(token_slots: torch.Tensor, n_slots: int,
     return Grouping(padded_pos, perm, block_slots, nb * blk_t, n_used)
 
 
+class SgmvPlan(NamedTuple):
+    """A grouping ready for ``sgmv``: ``plan_grouping``'s result, its
+    positions as the int64 index of the gather and the scatter, and the
+    block size it was built for."""
+
+    grouping: Grouping
+    pos: torch.Tensor  # [T] int64 padded_pos
+    blk_t: int
+
+
+def sgmv_plan(token_slots: torch.Tensor, n_slots: int,
+              blk_t: int) -> SgmvPlan:
+    """Build the plan ``sgmv`` runs on. With wall spans on, a
+    ``lora.plan`` span, counted as ``lora_plans``."""
+    sp = spans.wall
+    if sp is not None:
+        sp.open("lora.plan")
+    grouping = plan_grouping(token_slots, n_slots, blk_t)
+    plan = SgmvPlan(grouping, grouping.padded_pos.long(), blk_t)
+    if sp is not None:
+        sp.close()
+        sp.count("lora_plans")
+    return plan
+
+
 def sgmv(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
          token_slots: torch.Tensor, scale: float, *, n_slots: int,
-         blk_t: Optional[int] = DEFAULT_BLK_T) -> torch.Tensor:
+         blk_t: Optional[int] = DEFAULT_BLK_T,
+         plan: Optional[SgmvPlan] = None) -> torch.Tensor:
     """Grouped LoRA delta for a heterogeneous-adapter batch.
 
     x: [T, d_in]; a_stack: [R, r, d_in]; b_stack: [R, d_out, r];
@@ -110,36 +137,36 @@ def sgmv(x: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
     x.dtype. The adapters are rounded to x.dtype inside the kernels (the
     reference casts the whole pool first: the same numbers, without
     re-materialising the pool on every call). blk_t=None picks the block
-    size from (T, R) via ``auto_blk_t``. No step waits on the device.
-    With wall spans on, its four phases are spans: ``lora.plan``,
-    ``lora.gather``, ``lora.kernels`` and ``lora.scatter`` (the scatter,
-    the scale and the cast).
+    size from (T, R) via ``auto_blk_t``. ``plan``, from ``sgmv_plan`` on
+    these ``token_slots``, skips the planning (blk_t is then the plan's).
+    No step waits on the device. With wall spans on, its four phases are
+    spans: ``lora.plan`` (where it builds the plan), ``lora.gather``,
+    ``lora.kernels`` and ``lora.scatter`` (the scatter, the scale and the
+    cast).
     """
     t, d_in = x.shape
-    if blk_t is None:
-        blk_t = auto_blk_t(t, n_slots)
+    if plan is None:
+        if blk_t is None:
+            blk_t = auto_blk_t(t, n_slots)
+        plan = sgmv_plan(token_slots, n_slots, blk_t)
+    grouping, pos, blk_t = plan
     sp = spans.wall
     if sp is not None:
-        sp.open("lora.plan")
-    plan = plan_grouping(token_slots, n_slots, blk_t)
-    pos = plan.padded_pos.long()
-    if sp is not None:
-        sp.close()
         sp.open("lora.gather")
-    xbuf = x.new_zeros((plan.n_padded, d_in))
-    xbuf[pos] = x[plan.perm]                        # Fig. 6 gather
+    xbuf = x.new_zeros((grouping.n_padded, d_in))
+    xbuf[pos] = x[grouping.perm]                    # Fig. 6 gather
     if sp is not None:
         sp.close()
         sp.open("lora.kernels")
-    s = sgmv_shrink(xbuf, a_stack, plan.block_slots, blk_t=blk_t,
-                    n_used=plan.n_used)
-    y = sgmv_expand(s, b_stack, plan.block_slots, blk_t=blk_t,
-                    compute_dtype=x.dtype, n_used=plan.n_used)
+    s = sgmv_shrink(xbuf, a_stack, grouping.block_slots, blk_t=blk_t,
+                    n_used=grouping.n_used)
+    y = sgmv_expand(s, b_stack, grouping.block_slots, blk_t=blk_t,
+                    compute_dtype=x.dtype, n_used=grouping.n_used)
     if sp is not None:
         sp.close()
         sp.open("lora.scatter")
     out = torch.empty((t, b_stack.shape[1]), dtype=y.dtype, device=y.device)
-    out[plan.perm] = y[pos]                         # Fig. 6 scatter
+    out[grouping.perm] = y[pos]                     # Fig. 6 scatter
     out = (scale * out).to(x.dtype)
     if sp is not None:
         sp.close()

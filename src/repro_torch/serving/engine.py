@@ -290,10 +290,13 @@ class EdgeLoRAEngine:
                              f"disable), got {chunk}")
         self.chunked = chunk is not None
 
+        # each step call gives its mode a fresh plan memo ({}): the sgmv
+        # backend plans its grouping once per token layout of the call,
+        # and the memo dies with the call's adapter ids
         @torch.no_grad()
         def prefill_fn(params: Any, pool: Any, tokens: Any, cache1: Any,
                        slot_id: Any, length: Any) -> Any:
-            mode = LoRAMode("batched", slot_id, scale, backend)
+            mode = LoRAMode("batched", slot_id, scale, backend, {})
             logits, cache1 = model.prefill(params, {"tokens": tokens},
                                            cache1, pool, mode,
                                            lengths=length)
@@ -302,7 +305,7 @@ class EdgeLoRAEngine:
         @torch.no_grad()
         def decode_fn(params: Any, pool: Any, tokens: Any, cache: Any,
                       pos: Any, slot_ids: Any) -> Any:
-            mode = LoRAMode("batched", slot_ids, scale, backend)
+            mode = LoRAMode("batched", slot_ids, scale, backend, {})
             logits, cache = model.decode_step(params, tokens, cache, pos,
                                               pool, mode)
             return torch.argmax(logits, -1).to(torch.int32), cache
@@ -348,7 +351,7 @@ class EdgeLoRAEngine:
                                      cache1: Any, gcache: Any, slot_idx: Any,
                                      sids: Any, length: Any, *,
                                      prefix_len: int) -> Any:
-                mode = LoRAMode("batched", sids, scale, backend)
+                mode = LoRAMode("batched", sids, scale, backend, {})
                 logits, cache1 = model.prefill_suffix_dense(
                     params, tokens, cache1, gcache, slot_idx, length,
                     prefix_len, pool, mode)
@@ -393,7 +396,7 @@ class EdgeLoRAEngine:
         def paged_decode_fn(params: Any, pool: Any, tokens: Any, cache: Any,
                             tables: Any, lengths: Any, prompt_lens: Any,
                             pad_lens: Any, pos: Any, slot_ids: Any) -> Any:
-            mode = LoRAMode("batched", slot_ids, scale, backend)
+            mode = LoRAMode("batched", slot_ids, scale, backend, {})
             logits, cache = model.decode_step_paged(
                 params, tokens, cache, tables, lengths, prompt_lens,
                 pad_lens, pos, pool, mode,
@@ -433,7 +436,7 @@ class EdgeLoRAEngine:
                               cache1: Any, arena: Any, tables: Any,
                               slot_id: Any, length: Any, *,
                               prefix_len: int) -> Any:
-            mode = LoRAMode("batched", slot_id, scale, backend)
+            mode = LoRAMode("batched", slot_id, scale, backend, {})
             logits, cache1 = model.prefill_suffix(
                 params, tokens, cache1, arena, tables, length, prefix_len,
                 pool, mode, meta=meta)

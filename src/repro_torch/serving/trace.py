@@ -148,8 +148,8 @@ class WallSpans:
     spans are kept in ``spans`` as tuples (``WALL_FIELDS``), in the
     order they closed. ``state`` stamps slot-state visits
     (``slots``, the same fields, parent -1, args ``slot`` and
-    ``request``). ``counters`` holds counts the engine keeps beside the
-    spans (adapter loads and their bytes)."""
+    ``request``). ``counters`` holds counts the program keeps beside the
+    spans (adapter loads and their bytes; SGMV plans built and reused)."""
 
     __slots__ = ("origin", "spans", "slots", "counters", "_open",
                  "_state", "_next")

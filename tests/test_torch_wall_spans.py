@@ -9,6 +9,9 @@ record on the host's ``perf_counter`` beside the virtual one.
   also when the serve raises.
 * On, the token streams, the summary, the virtual events and the
   metrics equal the reference's, and the ones of a run with spans off.
+* The LoRA wrapper plans its grouping once per step call (one token
+  layout in these steps): ``lora.plan`` spans and the ``lora_plans``
+  counter match, every other LoRA call counts as ``lora_plan_reuses``.
 * The export carries the spans (``edgelora.wall``, a second process),
   passes the schema check and reads back through the report tool.
 * The linter holds the span sites to EL002's guard and sanctions one new
@@ -163,6 +166,30 @@ def test_step_spans_carry_the_step(traced):
         s[5]["bytes"] for s in loads)
     assert len([s for s in rec.spans if s[1] == "readback"]) == (
         summary.prefill_steps + summary.decode_steps)
+
+
+def test_plan_counters_count_plans_built_and_reused(traced):
+    """A step call plans its SGMV grouping once per token layout (one in
+    the dense model's steps): one ``lora.plan`` span per step call that
+    runs LoRA, counted as ``lora_plans``, and every other LoRA call of
+    the step call counted as ``lora_plan_reuses``."""
+    tracer, _, _, _ = traced
+    rec = tracer.wall_spans
+    by_id = {s[0]: s for s in rec.spans}
+
+    def call_of(s):
+        while s[1] != "step.call":
+            s = by_id[s[4]]
+        return s[0]
+
+    loras = [s for s in rec.spans if s[1] == "lora"]
+    plans = [s for s in rec.spans if s[1] == "lora.plan"]
+    calls = {call_of(s) for s in loras}
+    assert sorted(call_of(s) for s in plans) == sorted(calls)
+    assert rec.counters["lora_plans"].value == len(plans) == len(calls)
+    assert rec.counters["lora_plan_reuses"].value == (len(loras)
+                                                      - len(plans))
+    assert len(loras) > 2 * len(plans)
 
 
 def test_slot_state_spans_stamp_each_request(traced):
