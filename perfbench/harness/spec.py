@@ -18,10 +18,11 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import typing
 from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
-from typing import Dict, List
+from typing import Any, Dict, List
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH_DIR = ROOT / "perfbench"
@@ -82,22 +83,55 @@ def reference(cfg: Dict, root: Path = ROOT) -> ModuleType:
                        / f"{cfg['reference']}.py")
 
 
+# Keys of a configuration file that document it and are no field of the
+# program's ``ModelConfig``: its provenance, its reference and its cuts.
+DOC_KEYS = ("source", "paper", "reference", "reduced", "departures",
+            "assumed", "notes")
+
+
+def program_config(cfg: Dict):
+    """The program's ``ModelConfig`` for this configuration file. Every
+    key but ``DOC_KEYS`` is a field: a nested block becomes the
+    sub-config its field declares (``attn``, ``lora``, ``moe``, ``ssm``,
+    ...), lists become tuples, and a key that is no field raises, naming
+    it, so no key the program lacks is dropped in silence. ``citation``
+    is the file's ``source``."""
+    from repro_torch.configs.base import ModelConfig
+    kw = {k: v for k, v in cfg.items() if k not in DOC_KEYS}
+    if "source" in cfg:
+        kw.setdefault("citation", cfg["source"])
+    return _build(ModelConfig, kw, cfg.get("name", "config"))
+
+
+def _build(cls: type, values: Dict, where: str):
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(values) - fields)
+    if unknown:
+        raise KeyError(f"{where}: {', '.join(unknown)} is no field of the "
+                       f"program's {cls.__name__} (documentation keys: "
+                       f"{', '.join(DOC_KEYS)})")
+    hints = typing.get_type_hints(cls)
+    return cls(**{k: _value(hints[k], v, f"{where}.{k}")
+                  for k, v in values.items()})
+
+
+def _value(hint: Any, value: Any, where: str) -> Any:
+    sub = next((t for t in (hint, *typing.get_args(hint))
+                if dataclasses.is_dataclass(t)), None)
+    if sub is not None and isinstance(value, dict):
+        return _build(sub, value, where)
+    if isinstance(value, list):
+        return tuple(_value(None, v, where) for v in value)
+    return value
+
+
 def model_config(cfg: Dict, traffic: Dict):
     """The program's ``ModelConfig`` for this configuration, with the
     deployment's adapter pool and tenant count."""
-    from repro_torch.configs.base import (AttentionConfig, LoRAConfig,
-                                          ModelConfig)
-    fields = {f.name for f in dataclasses.fields(ModelConfig)}
-    kw = {k: v for k, v in cfg.items() if k in fields
-          and k not in ("attn", "lora")}
-    attn = dict(cfg["attn"])
-    attn["layer_pattern"] = tuple(attn["layer_pattern"])
-    lora = dict(cfg["lora"])
-    lora["target_modules"] = tuple(lora["target_modules"])
-    lora["max_resident"] = traffic["pool"]
-    lora["n_adapters"] = traffic["requests"]["tenants"]
-    return ModelConfig(**kw, citation=cfg["source"],
-                       attn=AttentionConfig(**attn), lora=LoRAConfig(**lora))
+    mc = program_config(cfg)
+    lora = dataclasses.replace(mc.lora, max_resident=traffic["pool"],
+                               n_adapters=traffic["requests"]["tenants"])
+    return dataclasses.replace(mc, lora=lora)
 
 
 def engine_config(traffic: Dict, seed: int):

@@ -17,10 +17,21 @@ kernel does the same counted work in less time, so no share can pass
   2·T·r·(d_in + d_out) operations; x read and the delta written in the
   activation dtype, each distinct adapter's A and B read once as the
   pool stores them (f32).
+* An expert layer (``moe_bound``), per MoE layer and step: T real
+  tokens, each through top_k experts' (gated) MLP, 2·T·top_k·(3 or
+  2)·d·f operations; each token's activation read and its output written
+  once, and the weights of ``experts_read`` experts read once (at least
+  top_k, at most min(E, T·top_k)).
 * Model FLOPs of a step: 2 per weight per real token through every
-  projection and its LoRA pair, attention at the real context, and the
-  head for the one position a row reads (prefill: the last prompt
-  token; decode: the new token).
+  projection a layer holds (an MoE layer: its router, top_k experts and
+  any shared expert) and each LoRA pair it carries, attention at the
+  real context, and the head for the one position a row reads (prefill:
+  the last prompt token; decode: the new token).
+
+Layers are counted one by one, each as the program builds its pattern
+slot (``transformer.slot_is_moe``: an MoE block on the last of every
+``moe_layer_period`` layers; ``init_lora_stack``: an MoE slot carries
+MLP LoRA pairs only on a shared expert).
 """
 from __future__ import annotations
 
@@ -30,11 +41,26 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from perfbench.harness.recorder import DECODE_KINDS, PREFILL_KINDS, Step
-from perfbench.harness.weights import LORA_DIMS, head_dim
 
 PEAKS = Path(__file__).resolve().parent.parent / "peaks.json"
 ACT_BYTES = 2     # bf16 activations
+WEIGHT_BYTES = 2  # bf16 weights
 POOL_BYTES = 4    # the adapter pool's f32
+
+MLP_MODULES = ("up", "gate", "down")
+LORA_DIMS = {
+    "q": lambda c: (c["d_model"], c["n_heads"] * head_dim(c)),
+    "k": lambda c: (c["d_model"], c["n_kv_heads"] * head_dim(c)),
+    "v": lambda c: (c["d_model"], c["n_kv_heads"] * head_dim(c)),
+    "o": lambda c: (c["n_heads"] * head_dim(c), c["d_model"]),
+    "up": lambda c: (c["d_model"], c["d_ff"]),
+    "gate": lambda c: (c["d_model"], c["d_ff"]),
+    "down": lambda c: (c["d_ff"], c["d_model"]),
+}
+
+
+def head_dim(cfg: Dict) -> int:
+    return cfg.get("head_dim") or cfg["d_model"] // cfg["n_heads"]
 
 
 def peaks(kind: str) -> Optional[Dict]:
@@ -84,16 +110,46 @@ def _row_pairs(row: Row, window: Optional[int]) -> int:
     return pairs(end, window) - pairs(row.start, window)
 
 
-def lora_modules(cfg: Dict) -> List[Tuple[int, int]]:
-    return [LORA_DIMS[m](cfg) for m in cfg["lora"]["target_modules"]
-            if m != "gate" or cfg["glu"]]
+def is_moe(cfg: Dict, layer: int) -> bool:
+    """Layer ``layer`` holds an MoE block."""
+    moe = cfg.get("moe")
+    if not moe:
+        return False
+    period = moe.get("moe_layer_period", 1)
+    return layer % period == period - 1
 
 
-def linear_params(cfg: Dict) -> int:
-    """Weights a token passes through in one layer."""
+def _mlp_params(cfg: Dict) -> int:
+    """One (gated) MLP of width ``d_ff``: a dense layer's or an expert's."""
+    return (3 if cfg["glu"] else 2) * cfg["d_model"] * cfg["d_ff"]
+
+
+def lora_names(cfg: Dict, layer: int = 0) -> List[str]:
+    """The LoRA modules layer ``layer`` carries, in ``target_modules``
+    order: no gate without a gated MLP, no MLP pair on an MoE layer
+    without a shared expert."""
+    bare = is_moe(cfg, layer) and not cfg["moe"].get("shared_expert")
+    return [m for m in cfg["lora"]["target_modules"]
+            if (m != "gate" or cfg["glu"])
+            and not (bare and m in MLP_MODULES)]
+
+
+def lora_modules(cfg: Dict, layer: int = 0) -> List[Tuple[int, int]]:
+    """(d_in, d_out) of each LoRA pair layer ``layer`` carries."""
+    return [LORA_DIMS[m](cfg) for m in lora_names(cfg, layer)]
+
+
+def linear_params(cfg: Dict, layer: int = 0) -> int:
+    """Weights a token passes through in layer ``layer``: attention, then
+    the dense MLP, or the router, top_k experts and any shared expert."""
     d, hd = cfg["d_model"], head_dim(cfg)
     qs, kvs = cfg["n_heads"] * hd, cfg["n_kv_heads"] * hd
-    return d * (qs + 2 * kvs) + qs * d + (3 if cfg["glu"] else 2) * d * cfg["d_ff"]
+    attn = d * (qs + 2 * kvs) + qs * d
+    if not is_moe(cfg, layer):
+        return attn + _mlp_params(cfg)
+    moe = cfg["moe"]
+    return (attn + d * moe["n_experts"] + moe["top_k"] * _mlp_params(cfg)
+            + (_mlp_params(cfg) if moe.get("shared_expert") else 0))
 
 
 def flash_prefill_bound(cfg: Dict, rows: Sequence[Row], pk: Dict,
@@ -109,15 +165,37 @@ def flash_prefill_bound(cfg: Dict, rows: Sequence[Row], pk: Dict,
 
 def sgmv_bound(cfg: Dict, rows: Sequence[Row], pk: Dict,
                out: Bound) -> None:
-    """Adds one step's SGMV pairs, one per LoRA module and layer."""
+    """Adds one step's SGMV pairs, one per LoRA module and layer that
+    carries it."""
     t = sum(r.tokens for r in rows)
     n = len({r.tenant for r in rows})
     rank = cfg["lora"]["rank"]
-    for d_in, d_out in lora_modules(cfg):
+    carried = [lora_names(cfg, i) for i in range(cfg["n_layers"])]
+    for m in cfg["lora"]["target_modules"]:
+        d_in, d_out = LORA_DIMS[m](cfg)
         flops = 2 * t * rank * (d_in + d_out)
         nbytes = t * (d_in + d_out) * ACT_BYTES \
             + n * rank * (d_in + d_out) * POOL_BYTES
-        for _ in range(cfg["n_layers"]):
+        for _ in range(sum(m in names for names in carried)):
+            out.add(flops, nbytes, pk)
+
+
+def moe_bound(cfg: Dict, rows: Sequence[Row], pk: Dict, out: Bound,
+              experts_read: Optional[int] = None) -> None:
+    """Adds one step's expert layers, one call per MoE layer: the step's
+    real tokens through their top_k experts. ``experts_read`` experts'
+    weights are read: by default top_k, the least any routing reads, and
+    never fewer, nor more than min(E, T·top_k), so no share passes 100 %
+    for want of a routing count."""
+    moe = cfg["moe"]
+    t = sum(r.tokens for r in rows)
+    k, e = moe["top_k"], moe["n_experts"]
+    read = min(e, t * k, max(k, experts_read or k))
+    flops = 2 * t * k * _mlp_params(cfg)
+    nbytes = 2 * t * cfg["d_model"] * ACT_BYTES \
+        + read * _mlp_params(cfg) * WEIGHT_BYTES
+    for i in range(cfg["n_layers"]):
+        if is_moe(cfg, i):
             out.add(flops, nbytes, pk)
 
 
@@ -125,8 +203,9 @@ def model_flops(cfg: Dict, rows: Sequence[Row]) -> float:
     """Useful FLOPs of one step over its real rows."""
     h, hd = cfg["n_heads"], head_dim(cfg)
     rank = cfg["lora"]["rank"]
-    lora = sum(2 * rank * (a + b) for a, b in lora_modules(cfg))
-    per_token = cfg["n_layers"] * (2 * linear_params(cfg) + lora)
+    per_token = sum(2 * linear_params(cfg, i)
+                    + sum(2 * rank * (a + b) for a, b in lora_modules(cfg, i))
+                    for i in range(cfg["n_layers"]))
     total = 0.0
     for r in rows:
         total += r.tokens * per_token

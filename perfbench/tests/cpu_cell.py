@@ -4,6 +4,7 @@ wrappers run their plain versions on CPU tensors."""
 from __future__ import annotations
 
 import copy
+import math
 import sys
 from pathlib import Path
 
@@ -21,10 +22,18 @@ SMALL_ENGINE = {"max_ctx": 56, "prompt_buckets": [48], "n_slots": 4,
                 "attn_kernel": True, "lora_backend": "sgmv"}
 
 
-def small_cell(name: str, **checks) -> spec.Cell:
-    cell = spec.load_cell(name)
+def small(cell: spec.Cell, **checks) -> spec.Cell:
+    """``cell`` cut to CPU size, in place; an expert block to at most 8
+    experts and top-2."""
     cfg = copy.deepcopy(cell.config)
     cfg.update(SMALL_MODEL)
+    if cfg.get("moe"):
+        cfg["moe"]["n_experts"] = min(cfg["moe"]["n_experts"], 8)
+        cfg["moe"]["top_k"] = min(cfg["moe"]["top_k"], 2)
+    # a whole period of the layer pattern and the expert interleave
+    period = math.lcm(len(cfg["attn"]["layer_pattern"]),
+                      (cfg.get("moe") or {}).get("moe_layer_period", 1))
+    cfg["n_layers"] = max(cfg["n_layers"], period)
     # the window bites at decode past the bucket, as 4096 does at full size
     cfg["attn"]["sliding_window"] = 48
     cfg["lora"]["rank"] = 4
@@ -38,3 +47,7 @@ def small_cell(name: str, **checks) -> spec.Cell:
     cell.config, cell.traffic = cfg, tfc
     cell.checks = {**cell.checks, **checks}
     return cell
+
+
+def small_cell(name: str, **checks) -> spec.Cell:
+    return small(spec.load_cell(name), **checks)
